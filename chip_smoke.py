@@ -4,18 +4,25 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from orbslam2commentedbyxcm_tpu_torch/csrc,
-checks each against its plain torch twin on the card, and drives the port's
-per-frame tracking step the way a user would. Phases, each printing one line:
+checks each against its plain torch twin on the card, and drives the port the
+way a user would: the per-frame tracking step, then the System's synchronous
+RGB-D and stereo SLAM. Phases, each printing one line:
 
   1. device   the card's name and power limit (nvidia-smi), TF32 flags
   2. build    nvcc build of both kernels, seconds
   3. K1       fused frontend vs twin on all 8 levels of a 640x480 frame
   4. K2       pose-optimization kernel vs twin, N=1000, stereo 0 / 0.5 / 1
   5. flagship entry.flagship(device="cuda"): kernels vs twins, compared
-  6. tracking BoxSequence at 640x480: frames 1-20 tracked by fused_track_step
+  6. tracking BoxSequence at 640x480: frames 1-10 tracked by fused_track_step
               against a 4096-point pack built from frame 0's depth; launch
               counters, pose error, per-frame time
-  7. kernels  one JSON line: per kernel, launches in phase 6, error, times
+  7. rgbd     System(Sensor.RGBD, device="cuda") on 60 frames of the same
+              sequence: tracked frames, keyframes, local BAs, ATE against
+              the JAX package's, per-frame times, launches, peak memory
+  8. stereo   System(Sensor.STEREO) on 30 rounded stereo pairs: the same
+              checks, 16 K1 launches per frame (left + right extraction)
+  9. kernels  one JSON line: per kernel, launches summed over phases 6-8,
+              error, times
 
 The last line is {"ok": true, "device": {...}}. Any failed phase exits non-zero
 without that line. Without a CUDA device it exits 2 and prints no result.
@@ -35,7 +42,11 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-N_TRACK = 20
+N_TRACK = 10
+N_RGBD, N_STEREO = 60, 30
+# ATE (SE3 alignment) of the JAX package on the CPU over the same runs (PERF.md);
+# the port's bound is 1.5 x that + 1 cm
+JAX_ATE_RGBD, JAX_ATE_STEREO = 0.0298, 0.0408
 
 
 def _fail(msg: str) -> None:
@@ -315,6 +326,91 @@ def phase_tracking(torch, dev, k1, k2):
     return launches
 
 
+def _percentile(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(math.ceil(q * len(xs))) - 1)]
+
+
+def phase_slam(torch, dev, sensor_name, n_frames, jax_ate, tag):
+    """Drive System(sensor, device=dev) over BoxSequence seed 5 at 640x480,
+    every frame's images rendered beforehand and handed over as numpy arrays,
+    as a user would. Returns the kernel launches of the run."""
+    from orbslam2commentedbyxcm_tpu_torch.models.system import Sensor, System
+    from orbslam2commentedbyxcm_tpu_torch.models.tracking import TrackingConfig
+    from orbslam2commentedbyxcm_tpu_torch.ops.frontend_kernel import fused_frontend
+    from orbslam2commentedbyxcm_tpu_torch.ops.poseopt_kernel import pose_optimization_fused
+    from orbslam2commentedbyxcm_tpu_torch.utils.evaluation import ate_rmse, positions_from_tcw
+    from orbslam2commentedbyxcm_tpu_torch.utils.synth import BoxSequence, default_camera
+
+    sensor = Sensor[sensor_name]
+    cam = default_camera(640, 480)
+    seq = BoxSequence(camera=cam, seed=5, n_frames=100, turns=0.35)
+    if sensor == Sensor.RGBD:
+        frames = [(seq.render(i), seq.depth_map(i)) for i in range(n_frames)]
+    else:
+        frames = [(np.round(seq.render(i)), np.round(seq.render_right(i))) for i in range(n_frames)]
+    slam = System(cam, sensor, config=TrackingConfig(max_frames_between_kf=8, kf_tracked_ratio=0.95),
+                  enable_loop_closing=False, device=dev)
+    track = slam.track_rgbd if sensor == Sensor.RGBD else slam.track_stereo
+    timer = _EventTimer(torch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_frontend.launches = 0
+    pose_optimization_fused.launches = 0
+    rows = []  # (i, pose, ms, keyframe inserted, K1 launches, K2 launches)
+    for i, (a, b) in enumerate(frames):
+        kf_before, k1, k2 = slam.map.next_kf_id, fused_frontend.launches, pose_optimization_fused.launches
+        timer.start()
+        pose = track(a, b, i / 30.0)
+        ms = timer.stop()
+        rows.append((i, pose, ms, slam.map.next_kf_id > kf_before,
+                     fused_frontend.launches - k1, pose_optimization_fused.launches - k2))
+    launches = {"fused_frontend": fused_frontend.launches,
+                "pose_optimization_fused": pose_optimization_fused.launches}
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+
+    tracked = [(i, p) for i, p, *_ in rows if p is not None]
+    _check(len(tracked) == n_frames, f"{sensor_name}: {len(tracked)} of {n_frames} frames tracked")
+    _check(not slam._archived_kf_trajectory, f"{sensor_name}: tracking was lost and the System reset")
+    for i, p in tracked:
+        _check(p.shape == (4, 4) and np.isfinite(p).all(), f"{sensor_name} frame {i}: pose not finite (4, 4)")
+    n_kf = slam.map.next_kf_id
+    n_good = len(slam.map.good_keyframes())
+    n_ba = slam.local_mapping.n_local_ba
+    est = positions_from_tcw(np.stack([p for _, p in tracked]))
+    gt = positions_from_tcw(np.stack([seq.pose(i) for i, _ in tracked]))
+    ate = ate_rmse(est, gt, with_scale=False)
+    bound = 1.5 * jax_ate + 0.01
+    min_kf = 6 if sensor == Sensor.RGBD else 3
+    _check(n_kf >= min_kf, f"{sensor_name}: {n_kf} keyframes inserted, want >= {min_kf}")
+    if sensor == Sensor.RGBD:
+        _check(n_ba >= 4, f"{sensor_name}: local BA ran {n_ba} times, want >= 4")
+    _check(ate <= bound, f"{sensor_name}: ATE {ate:.4f} m over {bound:.4f} m (1.5 x JAX {jax_ate} m + 1 cm)")
+    k1_per = {r[4] for r in rows}
+    _check(k1_per == {8 if sensor == Sensor.RGBD else 16},
+           f"{sensor_name}: K1 launches per frame {sorted(k1_per)}")
+    _check(launches["pose_optimization_fused"] >= 2 * (n_frames - 1),
+           f"{sensor_name}: K2 launched {launches['pose_optimization_fused']} times")
+
+    def stats(ms):
+        return (f"median {statistics.median(ms):.3f} p90 {_percentile(ms, 0.9):.3f} "
+                f"max {max(ms):.3f}" if ms else "none")
+
+    kf_ms = [r[2] for r in rows[1:] if r[3]]
+    plain_ms = [r[2] for r in rows[1:] if not r[3]]
+    k2_per = [r[5] for r in rows[1:]]
+    print(f"[{tag} {sensor_name.lower()}] System({sensor_name}, device={dev}), BoxSequence seed 5, 640x480, "
+          f"1000 features, {n_frames} frames: {len(tracked)}/{n_frames} tracked, {n_kf} keyframes inserted "
+          f"({n_good} kept), {slam.map.n_valid_points()} map points, {n_ba} local BAs | ATE {ate:.4f} m "
+          f"(bound {bound:.4f} m = 1.5 x JAX CPU {jax_ate} m + 1 cm) | per-frame ms (CUDA events, frames 1-"
+          f"{n_frames - 1}): ordinary frames ({len(plain_ms)}) {stats(plain_ms)}; keyframe frames "
+          f"({len(kf_ms)}, tracking + synchronous local mapping + local BA) {stats(kf_ms)}; frame 0 "
+          f"{rows[0][2]:.3f} | launches per frame: K1 {sorted(k1_per)}, K2 mean "
+          f"{statistics.mean(k2_per):.2f} (min {min(k2_per)}, max {max(k2_per)}) | peak device memory "
+          f"{peak_mib:.1f} MiB (torch.cuda.max_memory_allocated)")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -337,7 +433,12 @@ def main() -> int:
     k1 = phase_k1(torch, dev)
     k2 = phase_k2(torch, dev)
     phase_flagship(torch, dev)
-    launches = phase_tracking(torch, dev, k1, k2)
+    runs = [phase_tracking(torch, dev, k1, k2),
+            phase_slam(torch, dev, "RGBD", N_RGBD, JAX_ATE_RGBD, 7),
+            phase_slam(torch, dev, "STEREO", N_STEREO, JAX_ATE_STEREO, 8)]
+    launches = {name: sum(r[name] for r in runs) for name in runs[0]}
+    for r in runs:
+        _check(all(r.values()), f"a kernel of the main path was never launched: {r}")
     kernels = [
         {"name": "fused_frontend", "route": "cuda",
          "source": "orbslam2commentedbyxcm_tpu_torch/csrc/frontend.cu",
@@ -348,7 +449,7 @@ def main() -> int:
          "replaces": "orbslam2commentedbyxcm_tpu/ops/pallas_poseopt.py:300",
          "launches": launches["pose_optimization_fused"], **k2},
     ]
-    print(f"[7 total] {time.perf_counter() - t0:.1f} s")
+    print(f"[9 total] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

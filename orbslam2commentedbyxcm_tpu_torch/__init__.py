@@ -3,10 +3,13 @@ hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 It grows beside the JAX package `orbslam2commentedbyxcm_tpu`, which stays the
 reference, and keeps its layout:
-  ops/       ORB frontend, Hamming matching, motion-only pose optimization,
-             and the wrappers of the CUDA kernels (csrc/, built by kernels.py)
-  models/    the per-frame tracking step, observation and map-point packing
-  utils/     geometry, camera, synthetic sequences, JAX <-> torch conversion
+  ops/       ORB frontend, Hamming matching, stereo matching, motion-only
+             pose optimization, Schur bundle adjustment, triangulation, and
+             the wrappers of the CUDA kernels (csrc/, built by kernels.py)
+  models/    System (synchronous stereo / RGB-D SLAM), Tracking,
+             LocalMapping, Map, Frame / KeyFrame
+  utils/     geometry, camera, synthetic sequences, trajectory evaluation,
+             JAX <-> torch conversion
   entry.py   the flagship per-frame step
 
 The port imports torch and numpy, never JAX. Every function runs on the

@@ -1,26 +1,52 @@
-"""The steady-state per-frame tracking step on torch tensors.
+"""Tracking: the per-frame pose-estimation state machine on torch tensors.
 
-Counterpart of the device programs of orbslam2commentedbyxcm_tpu/models/
-tracking.py: `project_and_match` (SearchByProjection, src/ORBmatcher.cc:61
-with the IsInFrustum gates of src/Frame.cc:412-477), `match_and_optimize_step`
-and `fused_track_step` (motion-model stage chained into the local-map stage,
-reference TrackWithMotionModel src/Tracking.cc:966 + TrackLocalMap :1038).
-The tracking state machine, keyframe policy and pack cache are not ported yet.
+Counterpart of orbslam2commentedbyxcm_tpu/models/tracking.py (reference
+src/Tracking.cc). The device programs: `project_and_match`
+(SearchByProjection, src/ORBmatcher.cc:61 with the IsInFrustum gates of
+src/Frame.cc:412-477), `match_and_optimize_step` and `fused_track_step`
+(motion-model stage chained into the local-map stage, reference
+TrackWithMotionModel src/Tracking.cc:966 + TrackLocalMap :1038). Every one
+runs on the device its tensors lie on; `pose_optimization` launches the CUDA
+pose kernel for CUDA tensors.
 
-Every function runs on the device its tensors lie on; `pose_optimization`
-launches the CUDA pose kernel for CUDA tensors.
+`Tracking` is the host state machine for stereo/RGB-D: initialization from
+depth, the fused steady-state step with the staged fallback (motion model
+with the widened retry, reference keyframe, local map), the device-side pack
+cache, and the keyframe policy. Monocular initialization, localization-only
+mode, the BoW reference-keyframe search and relocalization are not ported:
+without a vocabulary or relocalizer the JAX package returns False from the
+last two, and so does this class.
+
+Two places take the correct behavior where the JAX package has a known fault:
+the fused step's local pack resolves replaced points and drops invalid ones
+(the JAX package packs its previous local set as is, tracking.py:691), and
+the fused step bumps the points' visible/found counters only once its
+min_localmap_inliers gate has passed (the JAX package bumps them before the
+gate, so a bail-out to the staged path counts the frame twice, :725-745).
 """
 
 from __future__ import annotations
 
+import enum
+import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
+from orbslam2commentedbyxcm_tpu_torch.models.frame import Frame
+from orbslam2commentedbyxcm_tpu_torch.models.map import Map
 from orbslam2commentedbyxcm_tpu_torch.ops import matching
 from orbslam2commentedbyxcm_tpu_torch.ops.optim import pose_optimization
+from orbslam2commentedbyxcm_tpu_torch.utils.camera import Camera
 
 LOCAL_POINT_CAP = 4096
+
+
+class TrackingState(enum.Enum):
+    NOT_INITIALIZED = 0
+    OK = 1
+    LOST = 2
 
 
 @dataclass
@@ -57,18 +83,25 @@ def project_and_match(
     point per feature is the first minimum (torch.argmin, as jnp.argmin).
     With `pt_angle`/`feat_angle` the orientation-delta histogram filter is
     applied. A point chosen by several features keeps only the lowest
-    (distance, feature index)."""
-    r = t_cw[:3, :3]
-    pc = pt_xyz @ r.T + t_cw[:3, 3]
-    z = pc[:, 2]
+    (distance, feature index).
+
+    Batched over targets: `t_cw` (B, 4, 4) with `feat_*` carrying the same
+    leading B searches one point set against B frames at once (the mapping
+    stage's fuse); every output then has that leading dim."""
+    r = t_cw[..., :3, :3]
+    pc = pt_xyz @ r.transpose(-1, -2) + t_cw[..., None, :3, 3]
+    z = pc[..., 2]
     z_ok = z > 0.05
     zs = torch.where(z_ok, z, 1.0)
-    u = fx * pc[:, 0] / zs + cx
-    v = fy * pc[:, 1] / zs + cy
+    u = fx * pc[..., 0] / zs + cx
+    v = fy * pc[..., 1] / zs + cy
     in_img = (u >= 0) & (u < width) & (v >= 0) & (v < height)
 
-    cam_center = -r.T @ t_cw[:3, 3]
-    po = pt_xyz - cam_center
+    if t_cw.dim() == 2:
+        cam_center = -r.T @ t_cw[:3, 3]
+    else:
+        cam_center = -(r.transpose(-1, -2) @ t_cw[..., :3, 3:])[..., 0]
+    po = pt_xyz - cam_center[..., None, :]
     dist = torch.sqrt(torch.sum(po * po, dim=-1))
     band = (dist >= 0.8 * pt_dmin) & (dist <= 1.2 * pt_dmax)
     n_norm = torch.sqrt(torch.sum(pt_normal * pt_normal, dim=-1))
@@ -84,28 +117,31 @@ def project_and_match(
 
     visible = pt_mask & z_ok & in_img & band & view_ok
 
-    # window + level gates, point-major (P, N)
+    # window + level gates, point-major (..., P, N)
     duv = torch.maximum(
-        torch.abs(u[:, None] - feat_uv[None, :, 0]), torch.abs(v[:, None] - feat_uv[None, :, 1])
+        torch.abs(u[..., :, None] - feat_uv[..., None, :, 0]),
+        torch.abs(v[..., :, None] - feat_uv[..., None, :, 1]),
     )
-    lvl = feat_level[None, :]
-    lvl_ok = (lvl >= pred_level[:, None] - 1) & (lvl <= pred_level[:, None] + 1)
-    cand = visible[:, None] & (duv <= radius[:, None]) & lvl_ok & feat_valid[None, :]
+    lvl = feat_level[..., None, :]
+    lvl_ok = (lvl >= pred_level[..., :, None] - 1) & (lvl <= pred_level[..., :, None] + 1)
+    cand = visible[..., :, None] & (duv <= radius[..., :, None]) & lvl_ok & feat_valid[..., None, :]
 
     d = torch.where(cand, matching.hamming_matrix(pt_desc, feat_desc), matching.BIG)
-    best_pt = torch.argmin(d, dim=0)  # first minimum per feature
-    best_d = torch.amin(d, dim=0)
+    best_pt = torch.argmin(d, dim=-2)  # first minimum per feature
+    best_d = torch.amin(d, dim=-2)
     ok = (best_d <= max_dist) & feat_valid
     if pt_angle is not None and feat_angle is not None:
+        if t_cw.dim() != 2:
+            raise ValueError("project_and_match: the rotation filter takes one target")
         ok = matching.rotation_consistency(feat_angle, pt_angle, best_pt, ok)
 
     # uniqueness: a point picked by several features keeps the one with the
     # lowest distance, ties to the lower feature index
-    feat_iota = torch.arange(feat_desc.shape[0], dtype=torch.float32, device=d.device)
+    feat_iota = torch.arange(feat_desc.shape[-2], dtype=torch.float32, device=d.device)
     key = torch.where(ok, best_d + feat_iota * 1e-5, torch.inf)
-    point_min = torch.full((d.shape[0],), torch.inf, device=d.device).scatter_reduce(
-        0, best_pt, key, reduce="amin")
-    ok = ok & (key <= point_min[best_pt])
+    point_min = torch.full(d.shape[:-1], torch.inf, device=d.device).scatter_reduce(
+        -1, best_pt, key, reduce="amin")
+    ok = ok & (key <= point_min.gather(-1, best_pt))
     return best_pt.int(), best_d, ok, visible
 
 
@@ -170,3 +206,381 @@ def fused_track_step(
     res2 = pose_optimization(res1.t_cw, pt_w, obs, use, inv_sigma2, fx, fy, cx, cy, bf)
     return (best1, exist, vis1, res1.n_inliers,
             best2, ok2, vis2, use, res2.t_cw, res2.inliers, res2.n_inliers)
+
+
+def _to_numpy(*tensors):
+    return tuple(t.cpu().numpy() for t in tensors)
+
+
+class Tracking:
+    def __init__(self, camera: Camera, world_map: Map, local_mapper=None,
+                 config: TrackingConfig | None = None):
+        self.camera = camera
+        self.map = world_map
+        self.local_mapper = local_mapper
+        self.cfg = config or TrackingConfig()
+
+        self.state = TrackingState.NOT_INITIALIZED
+        self.last_frame: Frame | None = None
+        self.velocity: np.ndarray | None = None
+        self.ref_kf_id: int = -1
+        self.frames_since_kf = 0
+        # (timestamp, ref_kf_id, T_frame_relative_to_kf): frame poses are kept
+        # relative to their reference keyframe (src/Tracking.cc:534-549), so
+        # BA corrections of the keyframe move the saved trajectory too
+        self.trajectory: list[tuple[float, int, np.ndarray]] = []
+        self.n_last_inliers = 0
+        # device-side pack cache keyed on (cap, map.pt_version, pids): the
+        # local map changes only at keyframes and BA, so steady-state frames
+        # reuse the packed point tensors instead of uploading them again.
+        # Whoever swaps in a new Map clears it (System.reset)
+        self._pack_cache: dict = {}
+        # the previous frame's local-map point set, which arms the fused
+        # steady-state step; None forces the staged path, which refreshes it
+        self._prev_local_pids: np.ndarray | None = None
+
+    # -- public entry ------------------------------------------------------
+
+    def track_frame(self, frame: Frame) -> TrackingState:
+        if self.state == TrackingState.NOT_INITIALIZED:
+            if not np.any(frame.depth > 0):
+                raise NotImplementedError(
+                    "monocular initialization is not ported (ROADMAP Queue 1 item 6): "
+                    "the first frame needs stereo or RGB-D depth")
+            self._stereo_initialization(frame)
+        else:
+            self.state = TrackingState.OK if self._track_normal(frame) else TrackingState.LOST
+        self.last_frame = frame
+        if self.state == TrackingState.OK:
+            ref = self.map.keyframes.get(self.ref_kf_id)
+            if ref is not None:
+                t_rel = frame.t_cw @ np.linalg.inv(ref.t_cw)
+                self.trajectory.append((frame.timestamp, self.ref_kf_id, t_rel))
+        return self.state
+
+    # -- initialization ----------------------------------------------------
+
+    def _backproject(self, frame: Frame, idx: np.ndarray) -> np.ndarray:
+        """Features `idx` + depth -> world points (Frame::UnprojectStereo)."""
+        cam = self.camera
+        z = frame.depth[idx]
+        u, v = frame.uv_und[idx, 0], frame.uv_und[idx, 1]
+        pc = np.stack([(u - cam.cx) / cam.fx * z, (v - cam.cy) / cam.fy * z, z], -1).astype(np.float32)
+        t_wc = np.linalg.inv(frame.t_cw)
+        return pc @ t_wc[:3, :3].T + t_wc[:3, 3]
+
+    def _add_depth_points(self, frame: Frame, kf, idx: np.ndarray):
+        for i, pw in zip(idx, self._backproject(frame, idx)):
+            pid = self.map.add_point(pw, frame.desc[i], kf.kf_id)
+            self.map.add_observation(pid, kf.kf_id, int(i))
+            frame.map_pt[i] = pid
+            self.map.update_point_normal_depth(pid)
+
+    def _stereo_initialization(self, frame: Frame):
+        """Direct depth unprojection (reference StereoInitialization,
+        src/Tracking.cc:556-615)."""
+        if frame.n < self.cfg.min_init_matches:
+            return
+        frame.set_pose(np.eye(4, dtype=np.float32))
+        kf = self.map.add_keyframe(frame)
+        self.map.origin_kf_id = kf.kf_id
+        self._add_depth_points(frame, kf, np.nonzero((frame.depth > 0) & frame.valid)[0])
+        self.map.update_connections(kf)
+        self.ref_kf_id = kf.kf_id
+        self.frames_since_kf = 0
+        self.velocity = np.eye(4, dtype=np.float32)
+        self.state = TrackingState.OK
+
+    def _spawn_depth_points(self, frame: Frame, kf):
+        """Close map points from depth at keyframe creation (reference
+        CreateNewKeyFrame, src/Tracking.cc:1219-1266: every point closer than
+        ThDepth, at least the 100 closest)."""
+        cam = self.camera
+        th = self.cfg.depth_th * cam.b if cam.b > 0 else self.cfg.depth_th
+        cands = np.nonzero((frame.depth > 0) & frame.valid & (frame.map_pt < 0))[0]
+        order = cands[np.argsort(frame.depth[cands])]
+        keep = order[(frame.depth[order] <= th) | (np.arange(len(order)) < 100)]
+        self._add_depth_points(frame, kf, keep)
+
+    # -- steady-state tracking --------------------------------------------
+
+    def _track_normal(self, frame: Frame) -> bool:
+        # steady state: one fused step for both stages; any gate miss leaves
+        # the frame untouched and falls through to the staged path
+        if (self.velocity is not None and self.state == TrackingState.OK
+                and self._prev_local_pids is not None and len(self._prev_local_pids) > 0
+                and self._track_fused(frame)):
+            self._finish_frame(frame)
+            return True
+        ok = False
+        if self.velocity is not None and self.state == TrackingState.OK:
+            ok = self._track_with_motion_model(frame)
+        if not ok and self.state == TrackingState.OK:
+            ok = self._track_reference_keyframe(frame)
+        # LOST: relocalization needs place recognition, which is not ported
+        # (the JAX package returns False here without a relocalizer)
+        if not ok:
+            return False
+        if not self._track_local_map(frame):
+            self.velocity = None
+            return False
+        self._finish_frame(frame)
+        return True
+
+    def _finish_frame(self, frame: Frame):
+        """Velocity model update (reference :467-502) and keyframe policy."""
+        if self.last_frame is not None:
+            self.velocity = frame.t_cw @ np.linalg.inv(self.last_frame.t_cw)
+        self.frames_since_kf += 1
+        if self._need_new_keyframe(frame):
+            self._create_new_keyframe(frame)
+
+    def _gather_points(self, pids: np.ndarray, cap: int):
+        """Packed point tensors for `pids` on the frame device + slot -> pid,
+        cached until the pid set or a packed attribute changes."""
+        n = min(len(pids), cap)
+        pids = pids[:n]
+        key = (cap, self.map.pt_version, pids.tobytes())
+        hit = self._pack_cache.get(key)
+        if hit is not None:
+            return hit
+        slot_to_pid = np.full(cap, -1, np.int64)
+        slot_to_pid[:n] = pids
+        out = (*self.map.pack_points(pids, cap), slot_to_pid)
+        # small FIFO: the motion and local-map stages have distinct pid sets;
+        # one slot would let the motion set evict the stable local pack
+        while len(self._pack_cache) >= 8:
+            self._pack_cache.pop(next(iter(self._pack_cache)))
+        self._pack_cache[key] = out
+        return out
+
+    def _match_and_optimize(self, frame: Frame, pids, t_pred, radius, cap=LOCAL_POINT_CAP,
+                            max_dist=matching.TH_HIGH, keep_existing=False, pt_angle=None):
+        cfg, cam = self.cfg, self.camera
+        *pack, slot_to_pid = self._gather_points(pids, cap)
+        fdev = frame.device_arrays()
+        dev = self.map.device
+        angle_args = {}
+        if pt_angle is not None:
+            ang = np.zeros(cap, np.float32)
+            n = min(len(pids), cap)
+            ang[:n] = pt_angle[:n]
+            angle_args = dict(pt_angle=torch.from_numpy(ang).to(dev), feat_angle=fdev["angle"])
+        # pre-existing assignments keep their world point (keep_existing)
+        existing_mask = frame.map_pt >= 0 if keep_existing else np.zeros(frame.capacity, bool)
+        existing_xyz = np.zeros((frame.capacity, 3), np.float32)
+        if existing_mask.any():
+            existing_xyz[existing_mask] = self.map.pt_xyz[frame.map_pt[existing_mask]]
+        out = match_and_optimize_step(
+            *pack, torch.from_numpy(np.asarray(t_pred, np.float32)).to(dev),
+            fdev["uv_und"], fdev["desc"], fdev["level"], fdev["valid"],
+            torch.from_numpy(existing_mask).to(dev), torch.from_numpy(existing_xyz).to(dev),
+            fdev["obs"], fdev["inv_sigma2"],
+            cam.fx, cam.fy, cam.cx, cam.cy, float(cam.width), float(cam.height), cam.bf,
+            float(radius), float(max_dist), math.log(cfg.scale_factor), cfg.n_levels,
+            **angle_args,
+        )
+        best_pt, ok, visible, t_cw, inliers, n_inl = _to_numpy(*out)
+
+        matched_pid = np.where(ok, slot_to_pid[best_pt], -1)
+        if keep_existing:
+            matched_pid = np.where(frame.map_pt >= 0, frame.map_pt, matched_pid)
+        frame.map_pt = matched_pid
+        # visibility counters (reference mnVisible, src/Tracking.cc:1302-1334)
+        vis_pids = slot_to_pid[np.nonzero(visible)[0]]
+        self.map.pt_visible[vis_pids[vis_pids >= 0]] += 1
+        matched = matched_pid >= 0
+        if matched.sum() < 3:
+            return 0
+        frame.set_pose(t_cw)
+        frame.map_pt = np.where(inliers, frame.map_pt, -1)
+        frame.is_outlier = matched & ~inliers
+        self.map.pt_found[frame.map_pt[frame.map_pt >= 0]] += 1
+        return int(n_inl)
+
+    def _track_fused(self, frame: Frame) -> bool:
+        """One-call steady-state tracking (fused_track_step). Returns True
+        and commits the frame on success; returns False with the frame
+        untouched so the staged path can run."""
+        cfg, cam = self.cfg, self.camera
+        lf = self.last_frame
+        lf.map_pt = self.map.resolve_replaced_batch(lf.map_pt)
+        feats = np.nonzero(lf.map_pt >= 0)[0]
+        pids_m, first = np.unique(lf.map_pt[feats], return_index=True)
+        if len(pids_m) < 10:
+            return False
+        local = self.map.resolve_replaced_batch(self._prev_local_pids)
+        local = np.unique(local[local >= 0])
+        cap = LOCAL_POINT_CAP
+        *m_pack, m_slot_to_pid = self._gather_points(pids_m, cap)
+        *l_pack, l_slot_to_pid = self._gather_points(local, cap)
+        ang = np.zeros(cap, np.float32)
+        n_m = min(len(pids_m), cap)
+        ang[:n_m] = lf.angle[feats[first]][:n_m]
+        fdev = frame.device_arrays()
+        dev = self.map.device
+        t_pred = (self.velocity @ lf.t_cw).astype(np.float32)
+        out = fused_track_step(
+            *m_pack, torch.from_numpy(ang).to(dev), *l_pack,
+            torch.from_numpy(t_pred).to(dev), fdev["uv_und"], fdev["desc"],
+            fdev["level"], fdev["valid"], fdev["angle"], fdev["obs"], fdev["inv_sigma2"],
+            cam.fx, cam.fy, cam.cx, cam.cy, float(cam.width), float(cam.height), cam.bf,
+            float(cfg.motion_search_radius), float(cfg.localmap_search_radius),
+            float(matching.TH_HIGH), math.log(cfg.scale_factor), cfg.n_levels,
+        )
+        best1, exist, vis1, n1, best2, ok2, vis2, use, t_cw, inl2, n2 = _to_numpy(*out)
+        if int(n1) < 20:
+            return False  # the staged path redoes motion with the widened retry
+        self.n_last_inliers = int(n2)
+        if int(n2) < cfg.min_localmap_inliers:
+            return False  # the staged path retries with a fresh local set
+        for vis, s2p in ((vis1, m_slot_to_pid), (vis2, l_slot_to_pid)):
+            vp = s2p[np.nonzero(vis)[0]]
+            self.map.pt_visible[vp[vp >= 0]] += 1
+        matched_pid = np.where(exist, m_slot_to_pid[best1], np.where(ok2, l_slot_to_pid[best2], -1))
+        frame.map_pt = np.where(inl2, matched_pid, -1)
+        frame.is_outlier = use & ~inl2
+        frame.set_pose(t_cw)
+        self.map.pt_found[frame.map_pt[frame.map_pt >= 0]] += 1
+        # refresh the local set for the next frame (also sets ref_kf_id, as
+        # the staged path's UpdateLocalKeyFrames does)
+        local_kfs = self._local_keyframes(frame)
+        self._prev_local_pids = self.map.points_seen_by(local_kfs) if local_kfs else None
+        return True
+
+    def _track_with_motion_model(self, frame: Frame) -> bool:
+        lf = self.last_frame
+        lf.map_pt = self.map.resolve_replaced_batch(lf.map_pt)  # CheckReplacedInLastFrame
+        feats = np.nonzero(lf.map_pt >= 0)[0]
+        pids, first = np.unique(lf.map_pt[feats], return_index=True)
+        if len(pids) < 10:
+            return False
+        # per-point source angle for the orientation-consistency histogram
+        pt_angle = lf.angle[feats[first]].astype(np.float32)
+        t_pred = (self.velocity @ lf.t_cw).astype(np.float32)
+        frame.set_pose(t_pred)
+        n = self._match_and_optimize(frame, pids, t_pred, self.cfg.motion_search_radius,
+                                     pt_angle=pt_angle)
+        if n < 20:
+            # widened retry (src/Tracking.cc:986-993): clear the assignments
+            # and search again with twice the window
+            frame.map_pt[:] = -1
+            frame.is_outlier[:] = False
+            frame.set_pose(t_pred)
+            n = self._match_and_optimize(frame, pids, t_pred, 2.0 * self.cfg.motion_search_radius,
+                                         pt_angle=pt_angle)
+        return n >= self.cfg.min_track_inliers
+
+    def _track_reference_keyframe(self, frame: Frame) -> bool:
+        """Wide-window projection search against the reference keyframe (the
+        JAX package's branch without a vocabulary)."""
+        kf = self.map.keyframes.get(self.ref_kf_id)
+        if kf is None:
+            return False
+        pids = np.unique(kf.map_pt[kf.map_pt >= 0])
+        if len(pids) < 10:
+            return False
+        t_pred = self.last_frame.t_cw if self.last_frame is not None else kf.t_cw
+        frame.set_pose(t_pred.astype(np.float32))
+        n = self._match_and_optimize(frame, pids, frame.t_cw, radius=30.0)
+        return n >= self.cfg.min_track_inliers
+
+    def _local_keyframes(self, frame: Frame, cap: int = 80) -> list[int]:
+        """Covisibility expansion around the frame's matched points
+        (UpdateLocalKeyFrames, src/Tracking.cc:1391); sets ref_kf_id."""
+        pids = np.unique(frame.map_pt[frame.map_pt >= 0])
+        if len(pids) == 0:
+            return []
+        _, kf_arr, _ = self.map._observer_csr(pids)
+        if len(kf_arr) == 0:
+            return []
+        kf_ids, counts = np.unique(kf_arr, return_counts=True)
+        order = np.argsort(-counts, kind="stable")
+        local = [int(kf_ids[i]) for i in order[:cap]]
+        extra = []
+        for kf_id in local[: cap // 2]:
+            kf = self.map.keyframes.get(kf_id)
+            if kf is not None and not kf.bad:
+                extra.extend(kf.best_covisible(10))
+        seen = set(local)
+        for e in extra:
+            if e not in seen and len(local) < cap:
+                local.append(e)
+                seen.add(e)
+        self.ref_kf_id = local[0]
+        return local
+
+    def _track_local_map(self, frame: Frame) -> bool:
+        local_kfs = self._local_keyframes(frame)
+        if not local_kfs:
+            return False
+        pids = self.map.points_seen_by(local_kfs)
+        if len(pids) == 0:
+            return False
+        n = self._match_and_optimize(frame, pids, frame.t_cw, self.cfg.localmap_search_radius,
+                                     keep_existing=True)
+        self.n_last_inliers = n
+        self._prev_local_pids = pids  # arms the fused step for the next frame
+        return n >= self.cfg.min_localmap_inliers
+
+    # -- keyframe policy ---------------------------------------------------
+
+    def _need_new_keyframe(self, frame: Frame) -> bool:
+        """Reference NeedNewKeyFrame (src/Tracking.cc:1088-1186); the
+        synchronous mapper always accepts."""
+        cfg = self.cfg
+        kf = self.map.keyframes.get(self.ref_kf_id)
+        if kf is None:
+            return False
+        n_kfs = len(self.map.good_keyframes())
+        min_obs = 3 if n_kfs > 2 else 2
+        ref_pids = np.unique(kf.map_pt[kf.map_pt >= 0])
+        ref_matches = 0
+        if len(ref_pids):
+            pid_idx, _, _ = self.map._observer_csr(ref_pids)
+            ref_matches = int((np.bincount(pid_idx, minlength=len(ref_pids)) >= min_obs).sum())
+
+        # close-point pressure, stereo/RGB-D only (src/Tracking.cc:1119-1134)
+        is_depth = bool(np.any(frame.depth > 0))
+        need_close = False
+        if is_depth:
+            b = self.camera.b if self.camera.b > 0 else 1.0
+            close = (frame.depth > 0) & (frame.depth < cfg.depth_th * b) & frame.valid
+            n_tracked_close = int(np.sum(close & (frame.map_pt >= 0)))
+            n_untracked_close = int(np.sum(close & (frame.map_pt < 0)))
+            need_close = n_tracked_close < 100 and n_untracked_close > 70
+
+        ratio = cfg.kf_tracked_ratio if n_kfs > 2 else 0.4
+        inl = self.n_last_inliers
+        # c1a hard timeout, c1b min-interval gate, c1c stereo/RGB-D pressure,
+        # c2 quality drop. As in the JAX package, the hard timeout inserts
+        # unconditionally (the reference requires c2 as well)
+        c1a = self.frames_since_kf >= cfg.max_frames_between_kf
+        c1b = self.frames_since_kf >= cfg.min_frames_between_kf
+        c1c = is_depth and (inl < ref_matches * 0.25 or need_close)
+        c2 = (inl < ref_matches * ratio or need_close) and inl > 15
+        return c1a or ((c1b or c1c) and c2)
+
+    def _create_new_keyframe(self, frame: Frame):
+        kf = self.map.add_keyframe(frame)
+        kf.map_pt[:] = -1  # rebuilt strictly from accepted observations
+        seen = set()
+        for i in np.nonzero(frame.map_pt >= 0)[0]:
+            pid = int(frame.map_pt[i])
+            if pid not in seen and self.map.pt_valid[pid]:
+                seen.add(pid)
+                self.map.add_observation(pid, kf.kf_id, int(i))
+        if seen:
+            touched = np.fromiter(seen, np.int64)
+            self.map.update_point_descriptors_batch(touched)
+            self.map.update_points_batch(touched)
+        if np.any(frame.depth > 0):
+            self._spawn_depth_points(frame, kf)
+        self.map.update_connections(kf)
+        self.ref_kf_id = kf.kf_id
+        self.frames_since_kf = 0
+        # the new keyframe re-centers the local map: the next frame runs the
+        # staged path, which refreshes the fused step's local set
+        self._prev_local_pids = None
+        if self.local_mapper is not None:
+            self.local_mapper.insert_keyframe(kf.kf_id)

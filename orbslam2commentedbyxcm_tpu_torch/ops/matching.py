@@ -1,11 +1,13 @@
 """256-bit Hamming matching on torch tensors.
 
-Counterpart of orbslam2commentedbyxcm_tpu/ops/matching.py. The JAX module
-unpacks descriptors to bits and takes distances as a bf16 matrix product, the
-shape the TPU's MXU wants. Here a distance is XOR + popcount of the packed
-words; torch has no popcount, so it is a SWAR bit count over a uint8 view.
-Thresholds mirror the reference: TH_LOW=50, TH_HIGH=100, HISTO_LENGTH=30
-(src/ORBmatcher.cc:38-40).
+Counterpart of orbslam2commentedbyxcm_tpu/ops/matching.py. Distances are one
+matrix product of the descriptors' bits as +-1 vectors: d = (256 - a.b) / 2.
+Every product and partial sum is an integer of magnitude <= 256, exact in
+float32 accumulation whatever the summation order, and +-1 is exact in TF32
+and bf16 inputs too, so the distances are exact under any matmul precision
+setting. (The JAX module takes the same product over {0, 1} bits in bf16 for
+the TPU's MXU.) Thresholds mirror the reference: TH_LOW=50, TH_HIGH=100,
+HISTO_LENGTH=30 (src/ORBmatcher.cc:38-40).
 """
 
 from __future__ import annotations
@@ -29,12 +31,11 @@ def unpack_bits(desc: torch.Tensor) -> torch.Tensor:
 
 
 def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
-    """All-pairs Hamming distances: (N, 8) x (M, 8) int32 -> (N, M) float32."""
-    x = (desc_a[:, None, :] ^ desc_b[None, :, :]).contiguous().view(torch.uint8)
-    x = x - ((x >> 1) & 0x55)
-    x = (x & 0x33) + ((x >> 2) & 0x33)
-    x = (x + (x >> 4)) & 0x0F
-    return x.sum(dim=-1, dtype=torch.int32).float()
+    """All-pairs Hamming distances: (..., N, 8) x (..., M, 8) int32 ->
+    (..., N, M) float32, leading dims broadcast."""
+    sa = unpack_bits(desc_a) * 2.0 - 1.0
+    sb = unpack_bits(desc_b) * 2.0 - 1.0
+    return (256.0 - sa @ sb.transpose(-1, -2)) * 0.5
 
 
 def rotation_consistency(

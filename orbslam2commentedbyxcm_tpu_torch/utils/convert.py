@@ -2,19 +2,24 @@
 
 A SLAM engine has no weights; what crosses over is the extractor's constants
 (BRIEF pattern, moment masks, blur taps, level budgets and scales: bit-equal
-descriptors keep the shipped vocabulary valid) and per-frame state (features,
-map-point packs). Everything arrives as numpy arrays, so this module never
-imports JAX. Descriptors are uint32 words in the JAX package and are stored
-bit-identically as int32 in torch.
+descriptors keep the shipped vocabulary valid), per-frame state (features,
+map-point packs) and the map itself (`map_from_jax`). Everything arrives as
+numpy arrays, so this module never imports JAX. Descriptors are uint32 words
+in the JAX package and are stored bit-identically as int32 in torch.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from orbslam2commentedbyxcm_tpu_torch.models.frame import KeyFrame
+from orbslam2commentedbyxcm_tpu_torch.models.map import _POINT_ARRAYS, Map
 from orbslam2commentedbyxcm_tpu_torch.ops.frontend_kernel import _TAPS
 from orbslam2commentedbyxcm_tpu_torch.ops.orb import FrameFeatures, ORBExtractor
+from orbslam2commentedbyxcm_tpu_torch.utils.camera import Camera
 
 
 def desc_to_torch(desc, device=None) -> torch.Tensor:
@@ -55,6 +60,38 @@ def map_pack_from_numpy(pack, device=None) -> tuple:
            for a in (xyz, normal, dmin, dmax)]
     return (f32[0], desc_to_torch(desc, device), f32[1], f32[2], f32[3],
             torch.from_numpy(np.array(mask, bool)).to(device))
+
+
+def camera_from_jax(cam) -> Camera:
+    """The JAX package's Camera -> the port's, field by field."""
+    return Camera(**{f.name: getattr(cam, f.name) for f in dataclasses.fields(Camera)})
+
+
+def map_from_jax(jmap, device="cpu") -> Map:
+    """A port Map holding a copy of the JAX Map `jmap`'s state: point arrays
+    and counters, observations, keyframes with their features, poses,
+    map-point links, covisibility and spanning tree. Nothing is shared, so
+    both packages can go on from the same map state."""
+    m = Map(point_capacity=len(jmap.pt_valid), device=device)
+    for name in _POINT_ARRAYS:
+        setattr(m, name, np.array(getattr(jmap, name), copy=True))
+    for name in ("n_points", "pt_version", "next_kf_id", "origin_kf_id", "big_change_idx"):
+        setattr(m, name, int(getattr(jmap, name)))
+    m.obs = {int(p): {int(k): int(f) for k, f in o.items()} for p, o in jmap.obs.items()}
+    for kf_id, jkf in jmap.keyframes.items():
+        kf = object.__new__(KeyFrame)
+        for name in ("kf_id", "frame_id", "timestamp", "n_levels", "scale_factor", "bad",
+                     "not_erase", "parent"):
+            setattr(kf, name, getattr(jkf, name))
+        kf.camera = camera_from_jax(jkf.camera)
+        for name in (*KeyFrame._FEATURES, "t_cw", "map_pt"):
+            setattr(kf, name, np.array(getattr(jkf, name), copy=True))
+        kf.covis = dict(jkf.covis)
+        kf.children = set(jkf.children)
+        kf.t_child_parent = None if jkf.t_child_parent is None else np.array(jkf.t_child_parent)
+        kf._inv_sigma2 = None
+        m.keyframes[int(kf_id)] = kf
+    return m
 
 
 def extractor_from_jax(ext) -> ORBExtractor:

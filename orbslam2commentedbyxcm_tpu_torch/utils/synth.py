@@ -105,6 +105,12 @@ class BoxSequence:
     def render(self, i: int) -> np.ndarray:
         return self.render_pose(self.pose(i))
 
+    def render_right(self, i: int) -> np.ndarray:
+        """Right-stereo view: camera displaced by baseline b along +x."""
+        t_rl = np.eye(4, dtype=np.float64)
+        t_rl[0, 3] = -self.camera.b
+        return self.render_pose(t_rl @ self.pose(i).astype(np.float64))
+
     def render_pose(self, t_cw: np.ndarray) -> np.ndarray:
         cam = self.camera
         k = cam.K.astype(np.float64)

@@ -1,5 +1,5 @@
-"""The port never imports JAX: every module of the package, and one CPU
-tracking step through it, in a fresh interpreter."""
+"""The port never imports JAX: every module of the package, one CPU tracking
+step and three RGB-D frames through the System, in a fresh interpreter."""
 
 import os
 import subprocess
@@ -22,6 +22,16 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
 step, args = pkg.flagship(device="cpu", h=96, w=128, n_features=120, point_cap=128)
 t_cw, n_inl = step(*args)
 assert t_cw.shape == (4, 4) and bool(torch.isfinite(t_cw).all()), t_cw
+from orbslam2commentedbyxcm_tpu_torch.models.system import Sensor, System
+from orbslam2commentedbyxcm_tpu_torch.models.tracking import TrackingConfig
+from orbslam2commentedbyxcm_tpu_torch.utils.camera import Camera
+from orbslam2commentedbyxcm_tpu_torch.utils.synth import BoxSequence
+cam = Camera(fx=250.0, fy=250.0, cx=160.0, cy=120.0, width=320, height=240, bf=20.0)
+seq = BoxSequence(camera=cam, seed=5, n_frames=100, turns=0.35, tex_size=256)
+slam = System(cam, Sensor.RGBD, config=TrackingConfig(n_features=300), enable_loop_closing=False,
+              device="cpu")
+poses = [slam.track_rgbd(seq.render(i), seq.depth_map(i), i / 30.0) for i in range(3)]
+assert all(p is not None and p.shape == (4, 4) for p in poses), poses
 bad = sorted(m for m in sys.modules if m in ("jax", "orbslam2commentedbyxcm_tpu")
              or m.startswith(("jax.", "jaxlib", "orbslam2commentedbyxcm_tpu.")))
 print("JAX-MODULES:", bad)
