@@ -9,20 +9,27 @@ way a user would: the per-frame tracking step, then the System's synchronous
 RGB-D and stereo SLAM. Phases, each printing one line:
 
   1. device   the card's name and power limit (nvidia-smi), TF32 flags
-  2. build    nvcc build of both kernels, seconds
-  3. K1       fused frontend vs twin on all 8 levels of a 640x480 frame
-  4. K2       pose-optimization kernel vs twin, N=1000, stereo 0 / 0.5 / 1
+  2. build    nvcc build of both kernels (one nvcc per source, in parallel), seconds
+  3. K1       one launch of the fused frontend over the 8-level pyramid of a
+              640x480 frame vs the twin, level by level (bit-equal), and each
+              level alone; device time (torch.profiler), call time (CUDA
+              events) of one pyramid launch and of 8 single-level launches,
+              twin time, bound
+  4. K2       pose-optimization kernel vs twin, N=1000, stereo 0 / 0.5 / 1;
+              device and call time at N=1000 and 2000, the latency floor
+              (device time at N=32), twin time, bound from the kernel's own
+              count of the evaluations it ran on this input
   5. flagship entry.flagship(device="cuda"): kernels vs twins, compared
   6. tracking BoxSequence at 640x480: frames 1-10 tracked by fused_track_step
               against a 4096-point pack built from frame 0's depth; launch
-              counters, pose error, per-frame time
+              counters (one K1 per extraction), pose error, per-frame time
   7. rgbd     System(Sensor.RGBD, device="cuda") on 60 frames of the same
               sequence: tracked frames, keyframes, local BAs, ATE against
               the JAX package's, per-frame times, launches, peak memory
   8. stereo   System(Sensor.STEREO) on 30 rounded stereo pairs: the same
-              checks, 16 K1 launches per frame (left + right extraction)
+              checks, 2 K1 launches per frame (left + right extraction)
   9. kernels  one JSON line: per kernel, launches summed over phases 6-8,
-              error, times
+              error, times, bound
 
 The last line is {"ok": true, "device": {...}}. Any failed phase exits non-zero
 without that line. Without a CUDA device it exits 2 and prints no result.
@@ -59,7 +66,9 @@ def _check(cond: bool, msg: str) -> None:
 
 
 def _cuda_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of fn() over `reps` calls, after one warm-up."""
+    """Mean milliseconds of fn() over `reps` calls between two CUDA events,
+    after one warm-up: the call time the main path pays, host work included
+    when the host enqueues more slowly than the device runs."""
     import torch
 
     fn()
@@ -71,6 +80,77 @@ def _cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_ms(fn, reps: int, kernel: str) -> tuple[float, int]:
+    """(device milliseconds per fn() call, kernel launches seen) of the kernels
+    whose name contains `kernel`, summed by torch.profiler over `reps` calls
+    after one warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if kernel in e.key]
+    n = sum(e.count for e in events)
+    us = sum(getattr(e, "self_device_time_total", 0) for e in events)
+    _check(n > 0 and us > 0, f"torch.profiler recorded no device time for {kernel}")
+    return us / 1e3 / reps, n
+
+
+# H100 SXM peaks (NVIDIA's data sheet, 700 W)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+
+def _bound(ops: float, nbytes: float) -> tuple[float, str]:
+    """(least milliseconds the card could take, what sets it)."""
+    t_ops, t_bytes = ops / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
+
+
+# K1 operations per pixel, counted from csrc/frontend.cu: the two blur
+# passes (18 multiplies + 18 adds), the compass test (4 differences, 8
+# compares), two threshold compares and the two 3x3 NMS (16 max, 4 compares);
+# a pixel that passes the compass test adds 12 differences and the doubling
+# (4 x 16 min, 4 x 16 max, 2 x 15 reductions, 1 negation).
+K1_OPS_PER_PX, K1_OPS_FAST = 70, 12 + 128 + 31
+
+
+def k1_ops(levels, th: float) -> int:
+    """Operations K1 does on these level images: the compass test decides,
+    per interior pixel, whether the full FAST response is computed."""
+    ops = 0
+    for lv in levels:
+        c = lv[3:-3, 3:-3]
+        q = (lv[:-6, 3:-3] - c, lv[3:-3, 6:] - c, lv[6:, 3:-3] - c, lv[3:-3, :-6] - c)
+        nb = sum((x > th).int() for x in q)
+        nd = sum((-x > th).int() for x in q)
+        ops += K1_OPS_PER_PX * lv.numel() + K1_OPS_FAST * int(((nb >= 2) | (nd >= 2)).sum())
+    return ops
+
+
+# K2 floating-point operations, counted from csrc/poseopt.cu: per active edge
+# and evaluation the projection (37), Jacobian rows (33), weights and Huber
+# (~8), the 21 H and 6 g sums (180) and the error; per edge of a chi2
+# relabel the projection and the test (40); per LM iteration the 6x6
+# Gauss-Jordan (~480) and the SE3 exp and product (~170).
+K2_OPS_EDGE_EVAL, K2_OPS_PROJECTION, K2_OPS_ITERATION = 260, 40, 650
+
+
+def k2_bound(work, n_mask: int, n: int, n_rounds: int = 4) -> tuple[float, str]:
+    """Bound of one solve from the kernel's own count of its work (`work`:
+    evaluations, edge evaluations); bytes: pose, points, observations,
+    inv_sigma2 and mask read once, pose, chi2, n_inliers and the inlier
+    mask written once."""
+    evals, edge_evals = work
+    ops = (K2_OPS_EDGE_EVAL * edge_evals + K2_OPS_PROJECTION * (n_rounds + 1) * n_mask
+           + K2_OPS_ITERATION * (evals - n_rounds))
+    return _bound(ops, 64 + 29 * n + 72 + n)
 
 
 def phase_device(torch):
@@ -98,39 +178,55 @@ def phase_build():
 
 
 def phase_k1(torch, dev):
-    """Frontend kernel vs twin on the 8 pyramid levels of a 640x480 frame."""
+    """Frontend kernel vs twin on the 8 pyramid levels of a 640x480 frame,
+    built as the extractor builds them (one flat buffer, one launch)."""
     from orbslam2commentedbyxcm_tpu_torch.ops import frontend_kernel as fk
-    from orbslam2commentedbyxcm_tpu_torch.ops.orb import ORBExtractor, _resize_weights
+    from orbslam2commentedbyxcm_tpu_torch.ops.orb import ORBExtractor
     from orbslam2commentedbyxcm_tpu_torch.utils.synth import BoxSequence, default_camera
 
     seq = BoxSequence(camera=default_camera(), seed=5, n_frames=100, turns=0.35)
     img = torch.from_numpy(seq.render(0)).to(dev)
     ext = ORBExtractor(n_features=1000)
-    h, w = img.shape
-    levels = []
-    for lvl in range(ext.n_levels):
-        hl, wl = max(16, round(h / ext.scales[lvl])), max(16, round(w / ext.scales[lvl]))
-        wh = torch.from_numpy(_resize_weights(h, hl)).to(dev)
-        ww = torch.from_numpy(_resize_weights(w, wl)).to(dev)
-        levels.append(img if lvl == 0 else (wh @ img @ ww.T).contiguous())
-    blur_err, n_corners = 0.0, 0
-    for lv in levels:
-        got = fk.fused_frontend(lv, ext.ini_th, ext.min_th)
-        ref = fk.fused_frontend_plain(lv, ext.ini_th, ext.min_th)
-        torch.cuda.synchronize()
-        for name, a, b in zip(("nms_hi", "nms_lo"), got[1:], ref[1:]):
-            _check(torch.equal(a, b), f"K1 {name} differs from the twin at level {tuple(lv.shape)}: "
-                   f"{int((a != b).sum())} pixels")
-        blur_err = max(blur_err, float((got[0] - ref[0]).abs().max()))
-        n_corners += int((got[1] > 0).sum())
-    _check(blur_err <= 1e-5, f"K1 blur differs from the twin by {blur_err}")
+    th_hi, th_lo = ext.ini_th, ext.min_th
+    buf, table = ext._pyramid(img)
+    levels = fk.level_views(buf, table)
+    out = fk.fused_frontend_pyramid(buf, table, th_hi, th_lo)
+    singles = [fk.fused_frontend(lv, th_hi, th_lo) for lv in levels]
+    refs = [fk.fused_frontend_plain(lv, th_hi, th_lo) for lv in levels]
+    torch.cuda.synchronize()
+    n_corners = 0
+    for lvl, ref in enumerate(refs):
+        for name, pyr, one, b in zip(("blur", "nms_hi", "nms_lo"), (fk.level_views(o, table)[lvl] for o in out),
+                                     singles[lvl], ref):
+            _check(torch.equal(pyr, b), f"K1 pyramid {name} differs from the twin at level {lvl} "
+                   f"{tuple(b.shape)}: {int((pyr != b).sum())} pixels")
+            _check(torch.equal(one, b), f"K1 single-level {name} differs from the twin at level {lvl}")
+        n_corners += int((ref[1] > 0).sum())
     _check(n_corners > 100, f"K1 found only {n_corners} corners")
-    ms = _cuda_ms(lambda: [fk.fused_frontend(lv, 20.0, 7.0) for lv in levels], 50)
-    plain_ms = _cuda_ms(lambda: [fk.fused_frontend_plain(lv, 20.0, 7.0) for lv in levels], 20)
-    print(f"[3 K1] 8 levels {[tuple(lv.shape) for lv in levels]}: score maps bit-equal, "
-          f"blur max|d|={blur_err} ({'bit-equal' if blur_err == 0 else 'not bit-equal'}), "
-          f"{n_corners} hi corners | kernel {ms:.4f} ms vs twin {plain_ms:.4f} ms per frame (8 levels)")
-    return {"max_abs_err": blur_err, "ms": ms, "plain_ms": plain_ms}
+
+    def pyramid():
+        fk.fused_frontend_pyramid(buf, table, th_hi, th_lo)
+
+    def per_level():
+        for lv in levels:
+            fk.fused_frontend(lv, th_hi, th_lo)
+
+    call_ms = _cuda_ms(pyramid, 200)
+    device_ms, n_dev = _device_ms(pyramid, 50, "frontend_kernel")
+    _check(n_dev == 50, f"K1: {n_dev} kernels profiled for 50 pyramid calls")
+    level_call_ms = _cuda_ms(per_level, 200)
+    level_device_ms, _ = _device_ms(per_level, 50, "frontend_kernel")
+    plain_ms = _cuda_ms(lambda: [fk.fused_frontend_plain(lv, th_hi, th_lo) for lv in levels], 20)
+    n_px = sum(lv.numel() for lv in levels)
+    bound_ms, bound_by = _bound(k1_ops(levels, min(th_hi, th_lo)), 16 * n_px)
+    print(f"[3 K1] 8 levels {list(table.shapes)} ({n_px} px) "
+          f"in one launch: blur and both score maps bit-equal to the twin, so is each level alone; "
+          f"{n_corners} hi corners | per extraction: device {device_ms:.4f} ms (torch.profiler), call "
+          f"{call_ms:.4f} ms (CUDA events); as 8 single-level launches device {level_device_ms:.4f} ms, "
+          f"call {level_call_ms:.4f} ms; twin {plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by})")
+    return {"max_abs_err": 0.0, "ms": device_ms, "device_ms": device_ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "per_level_device_ms": level_device_ms, "per_level_call_ms": level_call_ms}
 
 
 FX = FY = 500.0
@@ -169,16 +265,21 @@ def make_pose_problem(rng, n, stereo_frac, outlier_frac=0.1):
 
 
 def phase_k2(torch, dev):
-    """Pose kernel vs twin on the card, N=1000 edges."""
+    """Pose kernel vs twin on the card, N=1000 edges; times at N=1000 and
+    2000 and the latency floor at N=32."""
     from orbslam2commentedbyxcm_tpu_torch.ops.optim import pose_optimization, pose_optimization_plain
+    from orbslam2commentedbyxcm_tpu_torch.ops.poseopt_kernel import pose_optimization_fused
+
+    cam = (FX, FY, CX, CY, BF)
+
+    def problem(n, frac):
+        t0, pts, obs, mask, t_true = make_pose_problem(np.random.default_rng(0), n, frac)
+        return [torch.from_numpy(a).to(dev) for a in (t0, pts, obs, mask, np.ones(n, np.float32))], t_true
 
     n = 1000
     worst = {"pose": 0.0, "flips": 0, "dn": 0}
-    ms = plain_ms = 0.0
     for frac in (0.0, 0.5, 1.0):
-        t0, pts, obs, mask, t_true = make_pose_problem(np.random.default_rng(0), n, frac)
-        args = [torch.from_numpy(a).to(dev) for a in (t0, pts, obs, mask, np.ones(n, np.float32))]
-        cam = (FX, FY, CX, CY, BF)
+        args, t_true = problem(n, frac)
         rk = pose_optimization(*args, *cam)
         rp = pose_optimization_plain(*args, *cam)
         tk, tp = rk.t_cw.cpu().numpy(), rp.t_cw.cpu().numpy()
@@ -193,12 +294,29 @@ def phase_k2(torch, dev):
         _check(int(rk.n_inliers) == int(rk.inliers.sum()), "K2 n_inliers disagrees with its mask")
         worst = {"pose": max(worst["pose"], d_pose), "flips": max(worst["flips"], flips),
                  "dn": max(worst["dn"], dn)}
-        if frac == 0.5:
-            ms = _cuda_ms(lambda: pose_optimization(*args, *cam), 50)
+    times = {}
+    for size in (1000, 2000, 32):
+        args, _ = problem(size, 0.5)
+        pose_optimization(*args, *cam)
+        work = pose_optimization_fused.last_counts.tolist()[1:]
+        times[size] = {
+            "call_ms": _cuda_ms(lambda: pose_optimization(*args, *cam), 200),
+            "device_ms": _device_ms(lambda: pose_optimization(*args, *cam), 50, "pose_opt_kernel")[0],
+            "bound": k2_bound(work, int(args[3].sum()), size), "evaluations": work[0],
+        }
+        if size == n:
             plain_ms = _cuda_ms(lambda: pose_optimization_plain(*args, *cam), 5)
+    t = times[n]
     print(f"[4 K2] N={n} stereo 0/0.5/1: max|pose d|={worst['pose']:.3g}, inlier flips <= {worst['flips']}, "
-          f"|d n_inliers| <= {worst['dn']} | kernel {ms:.4f} ms vs twin {plain_ms:.4f} ms (stereo 0.5)")
-    return {"max_abs_err": worst["pose"], "ms": ms, "plain_ms": plain_ms}
+          f"|d n_inliers| <= {worst['dn']} | stereo 0.5, per solve: " + "; ".join(
+              f"N={k} device {v['device_ms']:.4f} ms (torch.profiler), call {v['call_ms']:.4f} ms (CUDA events), "
+              f"{v['evaluations']} evaluations, bound {v['bound'][0]:.6f} ms ({v['bound'][1]})"
+              for k, v in times.items()) + f"; twin {plain_ms:.4f} ms (N={n})")
+    return {"max_abs_err": worst["pose"], "ms": t["device_ms"], "device_ms": t["device_ms"],
+            "call_ms": t["call_ms"], "plain_ms": plain_ms, "bound_ms": t["bound"][0],
+            "bound_by": t["bound"][1], "library_ms": None,
+            "n2000_device_ms": times[2000]["device_ms"], "n2000_call_ms": times[2000]["call_ms"],
+            "n32_device_ms": times[32]["device_ms"]}
 
 
 def phase_flagship(torch, dev):
@@ -294,17 +412,18 @@ MAX_ROT_ERR_DEG = 0.6
 
 
 def phase_tracking(torch, dev, k1, k2):
-    from orbslam2commentedbyxcm_tpu_torch.ops.frontend_kernel import fused_frontend
+    from orbslam2commentedbyxcm_tpu_torch.ops.frontend_kernel import fused_frontend, fused_frontend_pyramid
     from orbslam2commentedbyxcm_tpu_torch.ops.poseopt_kernel import pose_optimization_fused
 
-    fused_frontend.launches = 0
+    fused_frontend_pyramid.launches = fused_frontend.launches = 0
     pose_optimization_fused.launches = 0
     seq, out = track_sequence(torch, dev, N_TRACK, timer=_EventTimer(torch))
-    launches = {"fused_frontend": fused_frontend.launches,
+    launches = {"fused_frontend": fused_frontend_pyramid.launches,
                 "pose_optimization_fused": pose_optimization_fused.launches}
     # frame 0 (the map pack) and frames 1..N are each extracted once
-    _check(launches["fused_frontend"] == 8 * (N_TRACK + 1),
-           f"K1 launched {launches['fused_frontend']} times for {N_TRACK + 1} frames (want 8 per frame)")
+    _check(launches["fused_frontend"] == N_TRACK + 1 and fused_frontend.launches == 0,
+           f"K1 launched {launches['fused_frontend']} times (+{fused_frontend.launches} single-level) for "
+           f"{N_TRACK + 1} extractions (want 1 per extraction)")
     _check(launches["pose_optimization_fused"] == 2 * N_TRACK,
            f"K2 launched {launches['pose_optimization_fused']} times for {N_TRACK} frames (want 2 per frame)")
     worst_pos = worst_rot = 0.0
@@ -321,8 +440,9 @@ def phase_tracking(torch, dev, k1, k2):
           f"n_inliers min {min_inl}, worst pose error {worst_pos:.4f} m / {worst_rot:.4f} deg "
           f"(bound {MAX_POS_ERR_M} m / {MAX_ROT_ERR_DEG} deg) | per-frame ms median {statistics.median(ms):.3f} "
           f"(min {min(ms):.3f}, max {max(ms):.3f}; extraction + obs + fused_track_step, CUDA events) | "
-          f"launches {launches} | K1 (8 levels) kernel {k1['ms']:.4f} ms vs twin {k1['plain_ms']:.4f} ms, "
-          f"K2 kernel {k2['ms']:.4f} ms vs twin {k2['plain_ms']:.4f} ms")
+          f"launches {launches} | K1 (8 levels) device {k1['device_ms']:.4f} ms, call {k1['call_ms']:.4f} ms vs "
+          f"twin {k1['plain_ms']:.4f} ms; K2 device {k2['device_ms']:.4f} ms, call {k2['call_ms']:.4f} ms vs "
+          f"twin {k2['plain_ms']:.4f} ms")
     return launches
 
 
@@ -337,7 +457,7 @@ def phase_slam(torch, dev, sensor_name, n_frames, jax_ate, tag):
     as a user would. Returns the kernel launches of the run."""
     from orbslam2commentedbyxcm_tpu_torch.models.system import Sensor, System
     from orbslam2commentedbyxcm_tpu_torch.models.tracking import TrackingConfig
-    from orbslam2commentedbyxcm_tpu_torch.ops.frontend_kernel import fused_frontend
+    from orbslam2commentedbyxcm_tpu_torch.ops.frontend_kernel import fused_frontend_pyramid
     from orbslam2commentedbyxcm_tpu_torch.ops.poseopt_kernel import pose_optimization_fused
     from orbslam2commentedbyxcm_tpu_torch.utils.evaluation import ate_rmse, positions_from_tcw
     from orbslam2commentedbyxcm_tpu_torch.utils.synth import BoxSequence, default_camera
@@ -355,17 +475,17 @@ def phase_slam(torch, dev, sensor_name, n_frames, jax_ate, tag):
     timer = _EventTimer(torch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fused_frontend.launches = 0
+    fused_frontend_pyramid.launches = 0
     pose_optimization_fused.launches = 0
     rows = []  # (i, pose, ms, keyframe inserted, K1 launches, K2 launches)
     for i, (a, b) in enumerate(frames):
-        kf_before, k1, k2 = slam.map.next_kf_id, fused_frontend.launches, pose_optimization_fused.launches
+        kf_before, k1, k2 = slam.map.next_kf_id, fused_frontend_pyramid.launches, pose_optimization_fused.launches
         timer.start()
         pose = track(a, b, i / 30.0)
         ms = timer.stop()
         rows.append((i, pose, ms, slam.map.next_kf_id > kf_before,
-                     fused_frontend.launches - k1, pose_optimization_fused.launches - k2))
-    launches = {"fused_frontend": fused_frontend.launches,
+                     fused_frontend_pyramid.launches - k1, pose_optimization_fused.launches - k2))
+    launches = {"fused_frontend": fused_frontend_pyramid.launches,
                 "pose_optimization_fused": pose_optimization_fused.launches}
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
 
@@ -387,10 +507,10 @@ def phase_slam(torch, dev, sensor_name, n_frames, jax_ate, tag):
         _check(n_ba >= 4, f"{sensor_name}: local BA ran {n_ba} times, want >= 4")
     _check(ate <= bound, f"{sensor_name}: ATE {ate:.4f} m over {bound:.4f} m (1.5 x JAX {jax_ate} m + 1 cm)")
     k1_per = {r[4] for r in rows}
-    _check(k1_per == {8 if sensor == Sensor.RGBD else 16},
+    _check(k1_per == {1 if sensor == Sensor.RGBD else 2},
            f"{sensor_name}: K1 launches per frame {sorted(k1_per)}")
-    _check(launches["pose_optimization_fused"] >= 2 * (n_frames - 1),
-           f"{sensor_name}: K2 launched {launches['pose_optimization_fused']} times")
+    k2_per = [r[5] for r in rows[1:]]
+    _check(min(k2_per) >= 2, f"{sensor_name}: K2 launched {min(k2_per)} times on a tracked frame (want >= 2)")
 
     def stats(ms):
         return (f"median {statistics.median(ms):.3f} p90 {_percentile(ms, 0.9):.3f} "
@@ -398,7 +518,6 @@ def phase_slam(torch, dev, sensor_name, n_frames, jax_ate, tag):
 
     kf_ms = [r[2] for r in rows[1:] if r[3]]
     plain_ms = [r[2] for r in rows[1:] if not r[3]]
-    k2_per = [r[5] for r in rows[1:]]
     print(f"[{tag} {sensor_name.lower()}] System({sensor_name}, device={dev}), BoxSequence seed 5, 640x480, "
           f"1000 features, {n_frames} frames: {len(tracked)}/{n_frames} tracked, {n_kf} keyframes inserted "
           f"({n_good} kept), {slam.map.n_valid_points()} map points, {n_ba} local BAs | ATE {ate:.4f} m "

@@ -1,14 +1,15 @@
 """Build and bind the hand-written CUDA kernels in csrc/.
 
-The sources are compiled at first use with nvcc into one shared library with
-a plain C interface (no PyTorch headers, so a build takes seconds) and loaded
-with ctypes. The library lands in `build/kernels/` at the repository root,
-named by a hash of the sources and flags, so an edited source is rebuilt and a
-stale library is never loaded. Nothing here runs at import time: this module
-imports on machines without a CUDA toolkit, and only `library()` needs nvcc.
+The sources are compiled at first use with nvcc, one process per source, all
+started together, and linked into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds), loaded with ctypes.
+The library lands in `build/kernels/` at the repository root, named by a hash
+of the sources and flags, so an edited source is rebuilt and a stale library
+is never loaded. Nothing here runs at import time: this module imports on
+machines without a CUDA toolkit, and only `library()` needs nvcc.
 
-No --use_fast_math: the frontend kernel's blur must round exactly as its
-torch twin does, and the pose solve relies on IEEE division, sqrt, sin, cos.
+No --use_fast_math: the frontend kernel's blur must round as its torch twin
+does, and the pose solve relies on IEEE division, sqrt, sin, cos.
 """
 
 from __future__ import annotations
@@ -26,15 +27,17 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # int orb_frontend(img, blur, nms_hi, nms_lo, h, w, taps[9] (host), th_hi, th_lo, stream)
-    "orb_frontend": [_P, _P, _P, _P, _I, _I, _P, _F, _F, _P],
+    # int orb_frontend_set_taps(taps[9] (host))
+    "orb_frontend_set_taps": [_P],
+    # int orb_frontend_pyramid(levels, out, total, table (host), n_levels, th_hi, th_lo, stream)
+    "orb_frontend_pyramid": [_P, _P, _I, _P, _I, _F, _F, _P],
     # int pose_opt(t_in, pts, obs, mask, isig, n, fx, fy, cx, cy, bf, n_rounds, n_iters,
-    #              t_out, inliers, n_inliers, chi2, stream)
+    #              t_out, inliers, counts, chi2, stream)
     "pose_opt": [_P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P, _P, _P],
 }
 
@@ -53,6 +56,50 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
+def compile_library(path: Path, sources, defines=()) -> str:
+    """Build the shared library `path` from the .cu `sources`, each compiled
+    with `defines` (e.g. "-DNAME=VALUE") by its own nvcc process, all started
+    together, then linked. Returns the compilers' log; raises if one fails."""
+    nvcc = _nvcc()
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    work = tempfile.mkdtemp(dir=path.parent)
+    try:
+        jobs = []
+        for src in sources:
+            obj = os.path.join(work, Path(src).stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, *defines, "-c", "-o", obj, str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log, failed = "", []
+        for cmd, _, proc in jobs:
+            log += proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)} ({proc.returncode})")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "; ".join(failed) + "\n" + log)
+        tmp = os.path.join(work, path.name)
+        cmd = [nvcc, "-shared", "-o", tmp, *(obj for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+        os.replace(tmp, path)  # atomic: concurrent builders never load a partial file
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return log
+
+
+def load(path) -> ctypes.CDLL:
+    """Load a library built by `compile_library` and bind the launchers it has."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib
@@ -66,21 +113,8 @@ def library() -> ctypes.CDLL:
     log = ""
     built = not path.exists()
     if built:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[str(s) for s in _sources() if s.suffix == ".cu"]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-        os.replace(tmp, path)  # atomic: concurrent builders never load a partial file
-    lib = ctypes.CDLL(str(path))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        log = compile_library(path, [s for s in _sources() if s.suffix == ".cu"])
+    lib = load(path)
     build_info.update(path=str(path), seconds=time.perf_counter() - t0, built=built, log=log)
     _lib = lib
     return lib

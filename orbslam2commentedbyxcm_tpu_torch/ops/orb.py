@@ -7,7 +7,8 @@ and the same Gaussian-moment orientation and rotated BRIEF descriptors
 (ops/descriptors). Descriptors are 256 bits, packed as (N, 8) int32 words
 holding the JAX package's uint32 bit patterns.
 
-Per level, blur + FAST + NMS is one hand-written CUDA kernel for CUDA tensors
+The level images are built into one flat buffer, and blur + FAST + NMS over
+all of them is one launch of a hand-written CUDA kernel for CUDA tensors
 (ops/frontend_kernel, csrc/frontend.cu). `_separable_blur`, `_fast_maps` and
 `_nms3` below are its plain twin, with the XLA path's border semantics, and
 run for CPU tensors.
@@ -174,8 +175,8 @@ class ORBExtractor:
     """Batched ORB extractor producing fixed-capacity FrameFeatures.
 
     Same constructor as the JAX ORBExtractor, without `use_pallas`: blur +
-    FAST + NMS run through ops/frontend_kernel, the CUDA kernel for CUDA
-    tensors and its twin for CPU tensors.
+    FAST + NMS over the whole pyramid run through ops/frontend_kernel, one
+    CUDA kernel launch for CUDA tensors and its twin for CPU tensors.
     """
 
     def __init__(
@@ -242,31 +243,52 @@ class ORBExtractor:
 
     # -- pipeline ----------------------------------------------------------
 
-    def _extract(self, img: torch.Tensor) -> FrameFeatures:
+    def _pyramid(self, img: torch.Tensor):
+        """All level images in one flat float32 buffer -> (buffer, LevelTable).
+        Level l > 0 is the resize matmul wh @ img @ ww.T, written into its
+        view of the buffer."""
+        from orbslam2commentedbyxcm_tpu_torch.ops.frontend_kernel import level_table, level_views
+
         h, w = img.shape
+        table = level_table(tuple(
+            (max(16, int(round(h / s))), max(16, int(round(w / s)))) for s in self.scales
+        ))
+        buf = torch.empty(table.total, dtype=torch.float32, device=img.device)
+        for lvl, view in enumerate(level_views(buf, table)):
+            if lvl == 0:
+                view.copy_(img)
+            else:
+                hl, wl = view.shape
+                wh = self._resize_matrix(h, hl, img.device)
+                ww = self._resize_matrix(w, wl, img.device)
+                torch.matmul(wh @ img, ww.T, out=view)
+        return buf, table
+
+    def _extract(self, img: torch.Tensor) -> FrameFeatures:
+        # imported here: frontend_kernel imports this module for the twin
+        from orbslam2commentedbyxcm_tpu_torch.ops.frontend_kernel import fused_frontend_pyramid, level_views
+
         if self.normalize_exposure:
             # gain capped to [1/8, 8] so a near-flat frame stays feature-poor
             mu = img.mean()
             mad = (img - mu).abs().mean()
             gain = torch.clamp(self.exposure_target_mad / torch.clamp(mad, min=1e-3), 0.125, 8.0)
             img = (img - mu) * gain + mu
-        outs = []
-        level_img = img
-        for lvl in range(self.n_levels):
-            hl = max(16, int(round(h / self.scales[lvl])))
-            wl = max(16, int(round(w / self.scales[lvl])))
-            if lvl > 0:
-                wh = self._resize_matrix(h, hl, img.device)
-                ww = self._resize_matrix(w, wl, img.device)
-                level_img = wh @ img @ ww.T
-            outs.append(self._extract_level(level_img, lvl, hl, wl))
+        buf, table = self._pyramid(img)
+        maps = fused_frontend_pyramid(buf, table, self.ini_th, self.min_th)
+        outs = [
+            self._select_level(*level_maps, lvl)
+            for lvl, level_maps in enumerate(zip(*(level_views(m, table) for m in maps)))
+        ]
         uv, resp, level, patches, valid = (torch.cat([o[i] for o in outs]) for i in range(5))
         desc, ang = descriptors_from_windows(patches, self._pattern, self._kmx, self._kmy)
         return FrameFeatures(uv, resp, ang, level, desc, valid)
 
-    def _extract_level(self, img: torch.Tensor, lvl: int, hl: int, wl: int):
+    def _select_level(self, blurred, nms_hi, nms_lo, lvl: int):
+        """A level's frontend maps -> (uv0, response, level, patches, valid)."""
         budget = self.budgets[lvl]
-        dev = img.device
+        dev = blurred.device
+        hl, wl = blurred.shape
         if budget == 0:
             return (
                 torch.zeros((0, 2), device=dev), torch.zeros(0, device=dev),
@@ -274,10 +296,6 @@ class ORBExtractor:
                 torch.zeros((0, 48, 48), dtype=torch.bfloat16, device=dev),
                 torch.zeros(0, dtype=torch.bool, device=dev),
             )
-        # imported here: frontend_kernel imports this module for the twin
-        from orbslam2commentedbyxcm_tpu_torch.ops.frontend_kernel import fused_frontend
-
-        blurred, nms_hi, nms_lo = fused_frontend(img, self.ini_th, self.min_th)
 
         # Border exclusion: descriptors/orientation need EDGE margin.
         margin = PATCH_RADIUS + 1

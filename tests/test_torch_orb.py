@@ -21,6 +21,7 @@ from orbslam2commentedbyxcm_tpu.ops.descriptors import descriptors_from_windows 
 from orbslam2commentedbyxcm_tpu.utils.synth import BoxSequence as JBoxSequence
 from orbslam2commentedbyxcm_tpu.utils.synth import default_camera as j_default_camera
 from orbslam2commentedbyxcm_tpu_torch.ops.descriptors import descriptors_from_windows as t_desc
+from orbslam2commentedbyxcm_tpu_torch.ops.frontend_kernel import fused_frontend
 from orbslam2commentedbyxcm_tpu_torch.ops.orb import _resize_weights
 from orbslam2commentedbyxcm_tpu_torch.utils import convert
 
@@ -78,13 +79,19 @@ def _level_images(img, ext):
     return out
 
 
+def _port_level(pe, level_img, lvl):
+    """One level image through the port's frontend and per-level selection."""
+    maps = fused_frontend(torch.from_numpy(level_img), pe.ini_th, pe.min_th)
+    return pe._select_level(*maps, lvl)
+
+
 def _compare_level(je, pe, level_img, lvl, hl, wl, desc_bar=0.99):
     def jax_level(x):
         uv, resp, lev, rows, off, valid = je._extract_level(x, lvl, hl, wl)
         return (uv, resp, lev, valid) + j_desc(rows, off, je._pattern, je._kmx, je._kmy)
 
     uv_j, resp_j, lev_j, valid_j, desc_j, ang_j = jax.jit(jax_level)(jnp.asarray(level_img))
-    uv_p, resp_p, lev_p, patches, valid_p = pe._extract_level(torch.from_numpy(level_img), lvl, hl, wl)
+    uv_p, resp_p, lev_p, patches, valid_p = _port_level(pe, level_img, lvl)
     desc_p, ang_p = t_desc(patches, pe._pattern, pe._kmx, pe._kmy)
     v = np.asarray(valid_j)
     np.testing.assert_array_equal(valid_p.numpy(), v)
@@ -116,7 +123,7 @@ def test_topk_tie_order_matches_jax(rng):
     je, pe = _pair()
     # fewer slots than candidates, so ties decide which keypoints are taken
     assert _compare_level(je, pe, img, 0, H, W, desc_bar=1.0) == je.budgets[0]
-    resp = pe._extract_level(torch.from_numpy(img), 0, H, W)[1].numpy()
+    resp = _port_level(pe, img, 0)[1].numpy()
     assert len(resp) - len(np.unique(resp)) > 10  # the selection really had ties
 
 
