@@ -6,7 +6,8 @@
 Builds the hand-written CUDA kernels from orbslam2commentedbyxcm_tpu_torch/csrc,
 checks each against its plain torch twin on the card, and drives the port the
 way a user would: the per-frame tracking step, then the System's synchronous
-RGB-D and stereo SLAM. Phases, each printing one line:
+RGB-D, stereo and monocular SLAM, relocalization with the shipped vocabulary
+and localization mode. Phases, each printing one line:
 
   1. device   the card's name and power limit (nvidia-smi), TF32 flags
   2. build    nvcc build of both kernels (one nvcc per source, in parallel), seconds
@@ -28,7 +29,16 @@ RGB-D and stereo SLAM. Phases, each printing one line:
               the JAX package's, per-frame times, launches, peak memory
   8. stereo   System(Sensor.STEREO) on 30 rounded stereo pairs: the same
               checks, 2 K1 launches per frame (left + right extraction)
-  9. kernels  one JSON line: per kernel, launches summed over phases 6-8,
+  9. mono     System(Sensor.MONOCULAR) on 60 frames of SyntheticSequence
+              ("sideways"): initialization frame, tracked frames, Sim3 ATE
+              against the JAX package's, per-frame times, launches per frame
+ 10. reloc    System(Sensor.RGBD, vocabulary="bootstrap") maps frames 0-39 of
+              BoxSequence seed 5, loses track on a textureless frame and
+              relocalizes on revisited frames 15-19: pose error, the
+              relocalization frame's time split, vocabulary load / upload
+ 11. loc      localization mode on frames 20-29 of the same System, then the
+              visual-odometry fallback: frozen map, tracked frames, launches
+ 12. kernels  one JSON line: per kernel, launches summed over phases 6-11,
               error, times, bound
 
 The last line is {"ok": true, "device": {...}}. Any failed phase exits non-zero
@@ -50,10 +60,14 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 N_TRACK = 10
-N_RGBD, N_STEREO = 60, 30
-# ATE (SE3 alignment) of the JAX package on the CPU over the same runs (PERF.md);
-# the port's bound is 1.5 x that + 1 cm
-JAX_ATE_RGBD, JAX_ATE_STEREO = 0.0298, 0.0408
+N_RGBD, N_STEREO, N_MONO = 60, 30, 60
+# ATE of the JAX package on the CPU over the same runs
+# (tools/jax_reference_ate.py): SE3
+# alignment for RGB-D and stereo, Sim3 for mono; the port's bound is 1.5 x
+# that + 1 cm
+JAX_ATE_RGBD, JAX_ATE_STEREO, JAX_ATE_MONO = 0.0298, 0.0408, 0.0137
+N_RELOC_MAP, REVISIT = 40, 15   # relocalization: frames mapped, first revisited frame
+RELOC_MAX_POS_M, RELOC_MAX_ROT_DEG = 0.05, 2.0
 
 
 def _fail(msg: str) -> None:
@@ -530,6 +544,201 @@ def phase_slam(torch, dev, sensor_name, n_frames, jax_ate, tag):
     return launches
 
 
+def _launch_counters():
+    from orbslam2commentedbyxcm_tpu_torch.ops.frontend_kernel import fused_frontend_pyramid
+    from orbslam2commentedbyxcm_tpu_torch.ops.poseopt_kernel import pose_optimization_fused
+
+    return fused_frontend_pyramid, pose_optimization_fused
+
+
+def _stats(ms):
+    return (f"median {statistics.median(ms):.3f} p90 {_percentile(ms, 0.9):.3f} max {max(ms):.3f}"
+            if ms else "none")
+
+
+def _track_timed(track, rows, args, timer):
+    """One System call timed with CUDA events, appended to `rows` as (pose,
+    ms, K1 launches, K2 launches); returns the pose."""
+    k1c, k2c = _launch_counters()
+    k1, k2 = k1c.launches, k2c.launches
+    timer.start()
+    pose = track(*args)
+    ms = timer.stop()
+    rows.append((pose, ms, k1c.launches - k1, k2c.launches - k2))
+    return pose
+
+
+def phase_mono(torch, dev):
+    """System(Sensor.MONOCULAR) over 60 frames of SyntheticSequence
+    ("sideways") at 640x480: the two-view initialization (double extraction
+    budget), then tracking and mapping. Returns the kernel launches."""
+    from orbslam2commentedbyxcm_tpu_torch.models.system import Sensor, System
+    from orbslam2commentedbyxcm_tpu_torch.models.tracking import TrackingConfig
+    from orbslam2commentedbyxcm_tpu_torch.utils.evaluation import ate_rmse, positions_from_tcw
+    from orbslam2commentedbyxcm_tpu_torch.utils.synth import SyntheticSequence, default_camera
+
+    cam = default_camera(640, 480)
+    seq = SyntheticSequence(camera=cam, n_frames=N_MONO, trajectory="sideways")
+    frames = [seq.render(i) for i in range(N_MONO)]
+    slam = System(cam, Sensor.MONOCULAR, config=TrackingConfig(max_frames_between_kf=8, kf_tracked_ratio=0.95),
+                  enable_loop_closing=False, device=dev)
+    k1c, k2c = _launch_counters()
+    timer = _EventTimer(torch)
+    torch.cuda.synchronize()
+    k1c.launches = k2c.launches = 0
+    rows, kf_new = [], []
+    for i, img in enumerate(frames):
+        kf_before = slam.map.next_kf_id
+        _track_timed(slam.track_monocular, rows, (img, i / 30.0), timer)
+        kf_new.append(slam.map.next_kf_id > kf_before)
+    launches = {"fused_frontend": k1c.launches, "pose_optimization_fused": k2c.launches}
+
+    tracked = [i for i, r in enumerate(rows) if r[0] is not None]
+    _check(bool(tracked), "mono: never initialized")
+    init = tracked[0]
+    _check(init < 10, f"mono: initialized at frame {init}, want within 10 frames")
+    _check(len(tracked) >= 50, f"mono: {len(tracked)} of {N_MONO} frames tracked, want >= 50")
+    _check(not slam._archived_kf_trajectory, "mono: tracking was lost and the System reset")
+    for i in tracked:
+        _check(rows[i][0].shape == (4, 4) and np.isfinite(rows[i][0]).all(), f"mono frame {i}: pose not finite")
+    est = positions_from_tcw(np.stack([rows[i][0] for i in tracked]))
+    gt = positions_from_tcw(np.stack([seq.pose(i) for i in tracked]))
+    ate = ate_rmse(est, gt, with_scale=True)
+    bound = 1.5 * JAX_ATE_MONO + 0.01
+    _check(ate <= bound, f"mono: Sim3 ATE {ate:.4f} m over {bound:.4f} m (1.5 x JAX {JAX_ATE_MONO} m + 1 cm)")
+    _check({r[2] for r in rows} == {1}, f"mono: K1 launches per frame {sorted({r[2] for r in rows})}")
+    after = [i for i in tracked if i > init]
+    k2_per = [rows[i][3] for i in after]
+    _check(min(k2_per) >= 2, f"mono: K2 launched {min(k2_per)} times on a tracked frame (want >= 2)")
+    n_kf, n_pts = slam.map.next_kf_id, slam.map.n_valid_points()
+    _check(n_kf >= 4 and n_pts >= 300, f"mono: {n_kf} keyframes, {n_pts} map points")
+    kf_ms = [rows[i][1] for i in after if kf_new[i]]
+    plain_ms = [rows[i][1] for i in after if not kf_new[i]]
+    print(f"[9 mono] System(MONOCULAR, device={dev}), SyntheticSequence sideways, 640x480, 1000 features "
+          f"(2000 while initializing), {N_MONO} frames: initialized at frame {init} "
+          f"({rows[init][1]:.3f} ms: extraction + two-view + initial BA), {len(tracked)}/{N_MONO} tracked, "
+          f"{n_kf} keyframes inserted ({len(slam.map.good_keyframes())} kept), {n_pts} map points | Sim3 ATE "
+          f"{ate:.4f} m (bound {bound:.4f} m = 1.5 x JAX CPU {JAX_ATE_MONO} m + 1 cm) | per-frame ms (CUDA events): "
+          f"before initialization {_stats([r[1] for r in rows[:init]])}; ordinary ({len(plain_ms)}) "
+          f"{_stats(plain_ms)}; keyframe ({len(kf_ms)}) {_stats(kf_ms)} | launches per frame: K1 1, K2 mean "
+          f"{statistics.mean(k2_per):.2f} (min {min(k2_per)}, max {max(k2_per)}) after initialization, "
+          f"{rows[init][3]} at it")
+    return launches
+
+
+def phase_reloc(torch, dev):
+    """System(RGBD, vocabulary="bootstrap") maps BoxSequence seed 5 frames
+    0-39, loses track on a textureless frame, and relocalizes on frames
+    15-19. Returns (launches, System, sequence) for phase 11."""
+    import time as _time
+
+    from orbslam2commentedbyxcm_tpu_torch.models.system import Sensor, System
+    from orbslam2commentedbyxcm_tpu_torch.models.tracking import TrackingConfig, TrackingState
+    from orbslam2commentedbyxcm_tpu_torch.ops import bow
+    from orbslam2commentedbyxcm_tpu_torch.utils.synth import BoxSequence, default_camera
+
+    t0 = _time.perf_counter()
+    voc = bow.bootstrap_vocabulary()
+    load_s = _time.perf_counter() - t0
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = _time.perf_counter()
+    voc.device_tree(dev)
+    torch.cuda.synchronize()
+    upload_s = _time.perf_counter() - t0
+    voc_mib = (torch.cuda.memory_allocated() - mem0) / 2**20
+    _check(voc_mib >= voc.device_bytes() / 2**20 - 1, f"vocabulary on the card: {voc_mib:.1f} MiB")
+
+    cam = default_camera(640, 480)
+    seq = BoxSequence(camera=cam, seed=5, n_frames=100, turns=0.35)
+    frames = [(seq.render(i), seq.depth_map(i)) for i in range(N_RELOC_MAP)]
+    revisits = [(seq.render(i), seq.depth_map(i)) for i in range(REVISIT, REVISIT + 5)]
+    blank = np.full((cam.height, cam.width), 128.0, np.float32)
+    blank += np.random.default_rng(0).uniform(-1, 1, blank.shape).astype(np.float32)
+    slam = System(cam, Sensor.RGBD, config=TrackingConfig(max_frames_between_kf=6), vocabulary=voc,
+                  enable_loop_closing=False, device=dev)
+    k1c, k2c = _launch_counters()
+    timer = _EventTimer(torch)
+    torch.cuda.synchronize()
+    k1c.launches = k2c.launches = 0
+    rows = []
+    for i, (img, depth) in enumerate(frames):
+        _track_timed(slam.track_rgbd, rows, (img, depth, i / 30.0), timer)
+    _check(all(r[0] is not None for r in rows), "reloc: the mapping run lost track")
+    n_kf = len(slam.map.good_keyframes())
+    _check(n_kf > 5, f"reloc: {n_kf} keyframes after {N_RELOC_MAP} frames, want > 5")
+    _check(len(slam.keyframe_db) >= n_kf - 1, f"reloc: {len(slam.keyframe_db)} keyframes in the database")
+    lost = _track_timed(slam.track_rgbd, rows, (blank, np.zeros_like(blank), 2.0), timer)
+    _check(lost is None and slam.get_tracking_state() == TrackingState.LOST,
+           "reloc: the textureless frame did not lose track")
+    _check(len(slam.map.good_keyframes()) == n_kf, "reloc: the System reset")
+    reloc_rows = []
+    for k, (img, depth) in enumerate(revisits):
+        _track_timed(slam.track_rgbd, reloc_rows, (img, depth, 2.1 + 0.1 * k), timer)
+        if k == 0:
+            split = dict(slam.local_mapping.relocalizer.last_split)
+    pose, ms, _, k2_reloc = reloc_rows[0]
+    _check(pose is not None, "reloc: not relocalized on the first revisited frame")
+    pos, rot = pose_errors(pose, seq.pose(REVISIT) @ np.linalg.inv(seq.pose(0)))  # map frame = camera 0
+    _check(pos <= RELOC_MAX_POS_M and rot <= RELOC_MAX_ROT_DEG,
+           f"reloc: pose error {pos:.4f} m / {rot:.4f} deg over {RELOC_MAX_POS_M} m / {RELOC_MAX_ROT_DEG} deg")
+    _check(all(r[0] is not None for r in reloc_rows), "reloc: lost again after relocalizing")
+    _check(k2_reloc >= 1, "reloc: no K2 launch in the relocalization frame")
+    launches = {"fused_frontend": k1c.launches, "pose_optimization_fused": k2c.launches}
+    parts = "; ".join(f"{k} {1e3 * v:.3f}" for k, v in split.items())
+    map_ms = [r[1] for r in rows[1:N_RELOC_MAP]]
+    print(f"[10 reloc] System(RGBD, vocabulary=bootstrap, device={dev}), BoxSequence seed 5, 640x480: mapped frames "
+          f"0-{N_RELOC_MAP - 1} ({n_kf} keyframes, {len(slam.keyframe_db)} in the database; per-frame ms "
+          f"{_stats(map_ms)}), lost on a textureless frame ({rows[-1][1]:.3f} ms), relocalized on frame {REVISIT} "
+          f"within {pos:.4f} m / {rot:.4f} deg (bound {RELOC_MAX_POS_M} m / {RELOC_MAX_ROT_DEG} deg) in "
+          f"{ms:.3f} ms (CUDA events), split (host clock, each piece ends in a host read): {parts} "
+          f"(pose = projection searches + K2), K2 launches {k2_reloc}; frames {REVISIT + 1}-{REVISIT + 4} "
+          f"{_stats([r[1] for r in reloc_rows[1:]])} | vocabulary {voc.n_words} words: load {1e3 * load_s:.1f} ms, "
+          f"upload {1e3 * upload_s:.1f} ms, {voc_mib:.1f} MiB on the card")
+    return launches, slam, seq
+
+
+def phase_localization(torch, dev, slam, seq):
+    """Localization mode on frames 20-29 of phase 10's System, then one frame
+    with the last frame's map links cleared: the visual-odometry fallback."""
+    from orbslam2commentedbyxcm_tpu_torch.models.tracking import TrackingState
+
+    frozen = (slam.map.next_kf_id, len(slam.map.good_keyframes()), slam.map.n_valid_points())
+    slam.activate_localization_mode()
+    k1c, k2c = _launch_counters()
+    timer = _EventTimer(torch)
+    first = REVISIT + 5
+    frames = [(seq.render(i), seq.depth_map(i)) for i in range(first, first + 11)]
+    torch.cuda.synchronize()
+    k1c.launches = k2c.launches = 0
+    rows, errs = [], []
+    for k, (img, depth) in enumerate(frames[:10]):
+        pose = _track_timed(slam.track_rgbd, rows, (img, depth, 3.0 + 0.1 * k), timer)
+        if pose is not None:
+            errs.append(pose_errors(pose, seq.pose(first + k) @ np.linalg.inv(seq.pose(0)))[0])
+    n_tracked = sum(r[0] is not None for r in rows)
+    _check(n_tracked >= 8, f"loc: {n_tracked} of 10 frames tracked, want >= 8")
+    _check((slam.map.next_kf_id, len(slam.map.good_keyframes()), slam.map.n_valid_points()) == frozen,
+           "loc: the map changed in localization mode")
+    slam.tracking.last_frame.map_pt[:] = -1  # no map anchors left: only temporal points
+    img, depth = frames[10]
+    vo_pose = _track_timed(slam.track_rgbd, rows, (img, depth, 4.0), timer)
+    _check(vo_pose is not None and slam.tracking.vo_mode, "loc: the visual-odometry fallback did not engage")
+    vo_err = pose_errors(vo_pose, seq.pose(first + 10) @ np.linalg.inv(seq.pose(0)))[0]
+    _check(vo_err < 0.3, f"loc: VO pose error {vo_err:.4f} m")
+    _check(slam.get_tracking_state() == TrackingState.OK, "loc: not tracking after the VO frame")
+    slam.deactivate_localization_mode()
+    launches = {"fused_frontend": k1c.launches, "pose_optimization_fused": k2c.launches}
+    k2_per = [r[3] for r in rows[:10] if r[0] is not None]
+    print(f"[11 loc] localization mode, frames {first}-{first + 9}: {n_tracked}/10 tracked, worst position error "
+          f"{max(errs):.4f} m, keyframes / points unchanged ({frozen[1]} / {frozen[2]}); per-frame ms "
+          f"{_stats([r[1] for r in rows[:10]])}; launches per frame K1 {sorted({r[2] for r in rows})}, K2 mean "
+          f"{statistics.mean(k2_per):.2f} (min {min(k2_per)}, max {max(k2_per)}) | VO fallback on frame "
+          f"{first + 10} with no map anchors: vo_mode on, position error {vo_err:.4f} m, {rows[-1][1]:.3f} ms, "
+          f"K2 launches {rows[-1][3]}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -554,7 +763,10 @@ def main() -> int:
     phase_flagship(torch, dev)
     runs = [phase_tracking(torch, dev, k1, k2),
             phase_slam(torch, dev, "RGBD", N_RGBD, JAX_ATE_RGBD, 7),
-            phase_slam(torch, dev, "STEREO", N_STEREO, JAX_ATE_STEREO, 8)]
+            phase_slam(torch, dev, "STEREO", N_STEREO, JAX_ATE_STEREO, 8),
+            phase_mono(torch, dev)]
+    reloc_launches, slam, seq = phase_reloc(torch, dev)
+    runs += [reloc_launches, phase_localization(torch, dev, slam, seq)]
     launches = {name: sum(r[name] for r in runs) for name in runs[0]}
     for r in runs:
         _check(all(r.values()), f"a kernel of the main path was never launched: {r}")
@@ -568,7 +780,7 @@ def main() -> int:
          "replaces": "orbslam2commentedbyxcm_tpu/ops/pallas_poseopt.py:300",
          "launches": launches["pose_optimization_fused"], **k2},
     ]
-    print(f"[9 total] {time.perf_counter() - t0:.1f} s")
+    print(f"[12 total] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -10,8 +10,9 @@ device.
 
 `rgbd_observations` turns extracted features plus an RGB-D depth map into the
 pose solver's inputs (the semantics of `System._attach_depth` and
-`Frame.stereo_obs`/`inv_sigma2`). `Frame.compact_to` (monocular
-initialization only) is not ported.
+`Frame.stereo_obs`/`inv_sigma2`). `Frame.compact_to` shrinks the two
+double-budget frames of a monocular initialization back to the standard
+capacity.
 """
 
 from __future__ import annotations
@@ -112,6 +113,40 @@ class Frame:
         """(N, 3) observations (u, v, u_right) with -1 in col 2 for mono feats."""
         return np.concatenate([self.uv_und, self.u_right[:, None]], axis=1).astype(np.float32)
 
+    def compact_to(self, cap: int, priority_mask: np.ndarray) -> np.ndarray:
+        """Shrink the feature arrays to `cap` slots: the valid `priority_mask`
+        features first, then the other valid ones by descending FAST
+        response. Returns the old -> new slot map (-1 = dropped).
+
+        Used after a monocular initialization with the doubled feature budget
+        (reference mpIniORBextractor, src/Tracking.cc:121-126), so keyframe
+        arrays keep one shape. The device features (`feats`) are compacted
+        with the numpy arrays, and the cached device arrays rebuilt."""
+        pri = priority_mask & self.valid
+        rest_idx = np.nonzero(self.valid & ~pri)[0]
+        order_rest = rest_idx[np.argsort(-self.response[rest_idx])]
+        sel = np.concatenate([np.nonzero(pri)[0], order_rest])[:cap]
+        old_to_new = np.full(self.capacity, -1, np.int64)
+        old_to_new[sel] = np.arange(len(sel))
+        fill = {"u_right": -1.0, "depth": -1.0, "map_pt": -1}
+        for name in ("uv", "uv_und", "angle", "level", "desc", "valid",
+                     "response", "u_right", "depth", "map_pt", "is_outlier"):
+            arr = getattr(self, name)
+            out = np.full((cap,) + arr.shape[1:], fill.get(name, 0), arr.dtype)
+            out[: len(sel)] = arr[sel]
+            setattr(self, name, out)
+        idx = torch.from_numpy(sel).to(self.device)
+
+        def shrink(t):
+            out = torch.zeros((cap,) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
+            out[: len(sel)] = t[idx]
+            return out
+
+        self.feats = type(self.feats)(*(shrink(t) for t in self.feats))
+        self.n = int(self.valid.sum())
+        self._device_cache = None
+        return old_to_new
+
     def device_arrays(self) -> dict:
         """The tracking stages' per-frame tensors on the frame's device, built
         once, after uv_und / u_right / depth are final (the System fills
@@ -158,6 +193,10 @@ class KeyFrame:
         self.not_erase = False
         self.t_child_parent = None          # mTcp stored on deletion
         self._inv_sigma2 = None
+        # BoW vector (word ids, values) and per-feature grouping nodes, set
+        # when place recognition registers the keyframe
+        self.bow_vec = None
+        self.bow_feat_nodes = None
 
     @property
     def center(self) -> np.ndarray:

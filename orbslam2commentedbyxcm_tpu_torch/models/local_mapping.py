@@ -14,6 +14,13 @@ src/LocalMapping.cc):
                                  (the abort flag between them comes with the
                                  async pipeline, whose worker can set it)
   KeyFrameCulling (:708)      -> 90%-redundancy rule
+  initial_ba                  -> 20 LM iterations over the two-keyframe map of
+                                 a monocular initialization, the first fixed
+                                 (CreateInitialMapMonocular's global BA)
+
+After mapping, each keyframe goes to `loop_closer.insert_keyframe` when one is
+set (the place-recognition registrar: System._DbOnlyRegistrar); `paused`
+(localization mode) skips mapping and the hand-off alike.
 
 Device work runs on the map's device; host bookkeeping stays numpy. The JAX
 package pads every array to a power-of-two size so XLA compiles each shape
@@ -157,9 +164,13 @@ def mapping_triangulate_fused(
 
 
 class LocalMapping:
-    def __init__(self, world_map: Map, camera: Camera, n_triangulation_neighbors: int = 10):
+    def __init__(self, world_map: Map, camera: Camera, loop_closer=None,
+                 n_triangulation_neighbors: int = 10):
         self.map = world_map
         self.camera = camera
+        self.loop_closer = loop_closer
+        self.relocalizer = None  # set by the System once place recognition is wired
+        self.paused = False
         self.n_tri_neighbors = n_triangulation_neighbors
         self.recent_points: list[tuple[int, int]] = []  # (pid, created-at kf_id)
         self.n_local_ba = 0  # local BA solves run so far
@@ -169,7 +180,18 @@ class LocalMapping:
 
     # -- entry point -------------------------------------------------------
 
+    def initial_ba(self, kf1_id: int, kf2_id: int):
+        """BA over the two-keyframe initial map, kf1 fixed (reference
+        CreateInitialMapMonocular runs GlobalBundleAdjustemnt(20))."""
+        m = self.map
+        problem = assemble_ba_problem(m, [kf1_id, kf2_id], fixed_ids={kf1_id})
+        if problem is None:
+            return
+        write_back_ba(m, problem, solve_ba_problem(problem, self.camera, m.device, INITIAL_BA_SCHEDULE))
+
     def insert_keyframe(self, kf_id: int):
+        if self.paused:
+            return
         kf = self.map.keyframes[kf_id]
         self._track_recent_points(kf)
         self.cull_map_points(kf)
@@ -177,6 +199,8 @@ class LocalMapping:
         self.fuse_neighbors(kf)
         self.local_bundle_adjustment(kf)
         self.cull_keyframes(kf)
+        if self.loop_closer is not None:
+            self.loop_closer.insert_keyframe(kf_id)
 
     # -- recent-point culling ---------------------------------------------
 
@@ -407,11 +431,11 @@ class LocalMapping:
         write_back_ba(m, problem, res)
 
 
-def assemble_ba_problem(m: Map, local_set):
+def assemble_ba_problem(m: Map, local_set, fixed_ids=None):
     """BA arrays for `local_set` keyframes + their points, with second-ring
-    observers and the origin keyframe as fixed poses (reference
-    LocalBundleAdjustment vertex setup, src/Optimizer.cc:556-650). None when
-    the problem is too small."""
+    observers and the origin keyframe (or else `fixed_ids`) as fixed poses
+    (reference LocalBundleAdjustment vertex setup, src/Optimizer.cc:556-650).
+    None when the problem is too small."""
     pids = m.points_seen_by(local_set)
     if len(pids) < 8 or len(local_set) == 0:
         return None
@@ -420,7 +444,7 @@ def assemble_ba_problem(m: Map, local_set):
     uniq_kf = uniq_kf[np.fromiter((int(k) in m.keyframes for k in uniq_kf), bool, count=len(uniq_kf))]
     ring2 = set(int(k) for k in uniq_kf) - set(local_set)
     all_ids = list(local_set) + sorted(ring2)
-    fixed = ring2 | {m.origin_kf_id}
+    fixed = ring2 | ({m.origin_kf_id} if fixed_ids is None else set(fixed_ids))
     if not any(i in fixed for i in all_ids):  # gauge: at least one fixed pose
         fixed.add(all_ids[0])
     kf_slot = {kf_id: s for s, kf_id in enumerate(all_ids)}
@@ -456,11 +480,12 @@ def assemble_ba_problem(m: Map, local_set):
 
 
 LOCAL_BA_SCHEDULE = ((5, True), (10, True))  # (LM iterations, Huber) per phase
+INITIAL_BA_SCHEDULE = ((20, True),)
 
 
-def solve_ba_problem(problem, cam: Camera, device):
+def solve_ba_problem(problem, cam: Camera, device, schedule=LOCAL_BA_SCHEDULE):
     """The BA solve of an assembled problem on `device`, the phases of
-    LOCAL_BA_SCHEDULE in one `bundle_adjustment` call. The JAX package polls
+    `schedule` in one `bundle_adjustment` call. The JAX package polls
     its abort flag between the phases; nothing can set that flag while the
     synchronous pipeline solves, and the relabel between phases sees the
     same chi2 either way, so one call gives the same result."""
@@ -468,7 +493,7 @@ def solve_ba_problem(problem, cam: Camera, device):
          for k in ("poses", "pose_fixed", "points", "point_valid", "op", "opt", "ouv", "omask", "osig")}
     return optim.bundle_adjustment(
         t["poses"], t["pose_fixed"], t["points"], t["point_valid"], t["op"], t["opt"], t["ouv"],
-        t["omask"], t["osig"], cam.fx, cam.fy, cam.cx, cam.cy, cam.bf, schedule=LOCAL_BA_SCHEDULE)
+        t["omask"], t["osig"], cam.fx, cam.fy, cam.cx, cam.cy, cam.bf, schedule=schedule)
 
 
 def write_back_ba(m: Map, problem, res):

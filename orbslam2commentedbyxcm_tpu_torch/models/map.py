@@ -61,6 +61,7 @@ class Map:
         self.next_kf_id = 0
         self.origin_kf_id = 0
         self.big_change_idx = 0
+        self.erase_hooks: list = []  # called with kf_id when a keyframe is erased
 
     # -- capacity ---------------------------------------------------------
 
@@ -380,6 +381,8 @@ class Map:
                 parent.children.discard(kf_id)
             kf.t_child_parent = kf.t_cw @ np.linalg.inv(self.keyframes[kf.parent].t_cw)
         kf.bad = True
+        for hook in self.erase_hooks:
+            hook(kf_id)
 
     # -- queries ----------------------------------------------------------
 

@@ -1,18 +1,25 @@
 """System facade: the public entry point (reference include/System.h).
 
 Counterpart of orbslam2commentedbyxcm_tpu/models/system.py for synchronous
-stereo and RGB-D SLAM without place recognition: extractor -> Tracking ->
-LocalMapping, run in the caller's thread, on the torch device the System is
-given. Frames go in through `track_rgbd` / `track_stereo`, which return the
+monocular, stereo and RGB-D SLAM: extractor -> Tracking -> LocalMapping, run
+in the caller's thread, on the torch device the System is given. Frames go in
+through `track_monocular` / `track_rgbd` / `track_stereo`, which return the
 (4, 4) float32 pose Tcw or None when the frame was not tracked.
 
-    system = System(camera, Sensor.RGBD, enable_loop_closing=False, device="cuda")
-    t_cw = system.track_rgbd(image, depth, timestamp)
+    system = System(camera, Sensor.MONOCULAR, enable_loop_closing=False, device="cuda")
+    t_cw = system.track_monocular(image, timestamp)
+
+With `vocabulary` ("bootstrap" or an ops/bow Vocabulary) keyframes are
+registered in a BoW keyframe database, the reference-keyframe stage tries a
+BoW search first, and a lost tracker relocalizes (models/relocalization).
+`activate_localization_mode` freezes the map and tracks with the
+visual-odometry fallback. `vocabulary=None` means no place recognition: the
+JAX package instead trains a small vocabulary from the map once it holds 5
+keyframes, which is not ported (ROADMAP.md Queue 3).
 
 Options that belong to later slices raise NotImplementedError naming their
-ROADMAP.md Queue 1 item: monocular SLAM, a vocabulary, loop closing, the
-async pipeline, the tracer, the multi-device mesh, map save/load and
-localization mode.
+ROADMAP.md Queue 1 item: loop closing, the async pipeline, the tracer, the
+multi-device mesh and map save/load.
 """
 
 from __future__ import annotations
@@ -23,9 +30,12 @@ import numpy as np
 import torch
 
 from orbslam2commentedbyxcm_tpu_torch.models.frame import Frame, rgbd_observations
+from orbslam2commentedbyxcm_tpu_torch.models.keyframe_database import KeyFrameDatabase
 from orbslam2commentedbyxcm_tpu_torch.models.local_mapping import LocalMapping
 from orbslam2commentedbyxcm_tpu_torch.models.map import Map
+from orbslam2commentedbyxcm_tpu_torch.models.relocalization import Relocalizer
 from orbslam2commentedbyxcm_tpu_torch.models.tracking import Tracking, TrackingConfig, TrackingState
+from orbslam2commentedbyxcm_tpu_torch.ops import bow
 from orbslam2commentedbyxcm_tpu_torch.ops.orb import ORBExtractor
 from orbslam2commentedbyxcm_tpu_torch.ops.stereo import stereo_match_frame
 from orbslam2commentedbyxcm_tpu_torch.utils.camera import Camera
@@ -42,6 +52,26 @@ def _not_ported(what: str, item: int):
     raise NotImplementedError(f"{what} is not ported to the PyTorch package yet (ROADMAP.md Queue 1 item {item})")
 
 
+class _DbOnlyRegistrar:
+    """Registers each keyframe's BoW vector and grouping nodes in the
+    keyframe database, without loop detection (place recognition with loop
+    closing disabled: relocalization still needs the database)."""
+
+    def __init__(self, system):
+        self.system = system
+
+    def insert_keyframe(self, kf_id: int):
+        sys_ = self.system
+        kf = sys_.map.keyframes.get(kf_id)
+        if kf is None or sys_.vocabulary is None:
+            return
+        words, groups, weights = bow.transform(sys_.vocabulary, kf.desc, kf.valid, device=sys_.device)
+        ids, vals = bow.bow_vector(words, weights, sys_.vocabulary.n_words)
+        kf.bow_vec = (ids, vals)
+        kf.bow_feat_nodes = groups
+        sys_.keyframe_db.add(kf_id, ids, vals)
+
+
 class System:
     def __init__(
         self,
@@ -56,10 +86,6 @@ class System:
         init_feature_boost: float = 2.0,  # monocular initialization only
         device="cuda",
     ):
-        if sensor == Sensor.MONOCULAR:
-            _not_ported("monocular SLAM (two-view initialization)", 6)
-        if vocabulary is not None:
-            _not_ported("place recognition (a vocabulary)", 8)
         if enable_loop_closing:
             _not_ported("loop closing (pass enable_loop_closing=False)", 9)
         if async_mapping:
@@ -85,8 +111,40 @@ class System:
             normalize_exposure=self.cfg.normalize_exposure,
             exposure_target_mad=self.cfg.exposure_target_mad,
         )
+        # monocular initialization extracts with a doubled budget (reference
+        # mpIniORBextractor, src/Tracking.cc:121-126); the two init frames are
+        # compacted back to the standard capacity (Frame.compact_to)
+        self._init_extractor = None
+        if sensor == Sensor.MONOCULAR and init_feature_boost > 1.0:
+            self._init_extractor = ORBExtractor(
+                n_features=int(self.cfg.n_features * init_feature_boost),
+                scale_factor=self.cfg.scale_factor,
+                n_levels=self.cfg.n_levels,
+                normalize_exposure=self.cfg.normalize_exposure,
+                exposure_target_mad=self.cfg.exposure_target_mad,
+            )
         self.local_mapping = LocalMapping(self.map, camera)
-        self.tracking = Tracking(camera, self.map, self.local_mapping, self.cfg)
+        self.tracking = Tracking(camera, self.map, self.local_mapping, self.cfg,
+                                 std_capacity=self.extractor.capacity)
+        if vocabulary == "bootstrap":
+            vocabulary = bow.bootstrap_vocabulary()
+        self.vocabulary = vocabulary
+        self.keyframe_db = None
+        if vocabulary is not None:
+            self._wire_place_recognition()
+
+    def _wire_place_recognition(self):
+        """Keyframe database (erased keyframes leave it through the map's
+        erase hook), the registrar as the mapper's loop_closer hand-off, the
+        relocalizer, and the tracker's vocabulary. The tree is uploaded to
+        the System's device here, once."""
+        self.vocabulary.device_tree(self.device)
+        self.keyframe_db = KeyFrameDatabase(self.vocabulary)
+        self.map.erase_hooks.append(self.keyframe_db.erase)
+        self.local_mapping.loop_closer = _DbOnlyRegistrar(self)
+        self.local_mapping.relocalizer = Relocalizer(self.map, self.camera, keyframe_db=self.keyframe_db,
+                                                     vocabulary=self.vocabulary)
+        self.tracking.vocabulary = self.vocabulary
 
     # -- frame entry points ------------------------------------------------
 
@@ -102,7 +160,10 @@ class System:
         return torch.from_numpy(img.astype(np.float32)).to(self.device)
 
     def _make_frame(self, img: torch.Tensor, timestamp: float) -> Frame:
-        frame = Frame(self.extractor(img), self.camera, timestamp, self.cfg.scale_factor, self.cfg.n_levels)
+        ext = self.extractor
+        if self._init_extractor is not None and self.tracking.state == TrackingState.NOT_INITIALIZED:
+            ext = self._init_extractor  # the doubled budget while initializing
+        frame = Frame(ext(img), self.camera, timestamp, self.cfg.scale_factor, self.cfg.n_levels)
         if self.camera.has_distortion:
             frame.uv_und = self.camera.undistort_points(frame.feats.uv).cpu().numpy()
         return frame
@@ -111,12 +172,18 @@ class System:
         state = self.tracking.track_frame(frame)
         # lost right after initialization: the young map is too small to
         # recover from, so reset (reference src/Tracking.cc:518-525)
-        if state == TrackingState.LOST and 0 < len(self.map.good_keyframes()) <= 5:
+        if (state == TrackingState.LOST and not self.tracking.localization_only
+                and 0 < len(self.map.good_keyframes()) <= 5):
             self.reset()
         return state
 
     def track_monocular(self, image, timestamp: float):
-        _not_ported("monocular SLAM", 6)
+        """-> Tcw (4, 4) float32, or None if the frame was not tracked."""
+        if self.sensor != Sensor.MONOCULAR:
+            raise ValueError(f"track_monocular on a {self.sensor.name} system")
+        frame = self._make_frame(self._image(image), timestamp)
+        state = self._track_locked(frame)
+        return frame.t_cw.copy() if state == TrackingState.OK else None
 
     def track_rgbd(self, image, depth, timestamp: float):
         """-> Tcw (4, 4) float32, or None if the frame was not tracked."""
@@ -165,17 +232,39 @@ class System:
         t.last_frame = None
         t.velocity = None
         t.trajectory = []
+        t.init_ref_frame = None
+        t.vo_mode = False
         t._prev_local_pids = None  # stale pids index the old map
         t._pack_cache.clear()  # the new map's pt_version restarts from 0
+        if self.keyframe_db is not None:
+            self.keyframe_db.clear()
+            self.map.erase_hooks.append(self.keyframe_db.erase)
+            self.local_mapping.relocalizer.map = self.map
 
     def shutdown(self):
         """A no-op: the synchronous pipeline has no worker to join."""
 
     def activate_localization_mode(self):
-        _not_ported("localization mode", 10)
+        """Track against the frozen map: no keyframes, no mapping (reference
+        System::ActivateLocalizationMode, src/System.cc:147-172)."""
+        self.tracking.localization_only = True
+        self.local_mapping.paused = True
 
     def deactivate_localization_mode(self):
-        _not_ported("localization mode", 10)
+        self.tracking.localization_only = False
+        self.tracking.vo_mode = False
+        self.local_mapping.paused = False
+
+    def change_calibration(self, camera: Camera):
+        """Swap the camera intrinsics in every consumer and drop the motion
+        model, so the next frame re-anchors through the reference keyframe
+        (reference Tracking::ChangeCalibration, src/Tracking.cc:1735-1764)."""
+        self.camera = camera
+        self.tracking.camera = camera
+        self.local_mapping.camera = camera
+        if self.local_mapping.relocalizer is not None:
+            self.local_mapping.relocalizer.camera = camera
+        self.tracking.velocity = None
 
     def save_map(self, path: str):
         _not_ported("map save/load", 9)

@@ -9,13 +9,16 @@ TrackWithMotionModel src/Tracking.cc:966 + TrackLocalMap :1038). Every one
 runs on the device its tensors lie on; `pose_optimization` launches the CUDA
 pose kernel for CUDA tensors.
 
-`Tracking` is the host state machine for stereo/RGB-D: initialization from
-depth, the fused steady-state step with the staged fallback (motion model
-with the widened retry, reference keyframe, local map), the device-side pack
-cache, and the keyframe policy. Monocular initialization, localization-only
-mode, the BoW reference-keyframe search and relocalization are not ported:
-without a vocabulary or relocalizer the JAX package returns False from the
-last two, and so does this class.
+`Tracking` is the host state machine: initialization from depth (stereo /
+RGB-D) or from two views (monocular: `search_for_initialization`,
+`initialize_two_view`, the median-depth scale and `LocalMapping.initial_ba`),
+the fused steady-state step with the staged fallback (motion model with the
+widened retry, reference keyframe, local map), relocalization when LOST, the
+localization-only mode with its visual-odometry fallback on temporal depth
+points, the device-side pack cache, and the keyframe policy. With a
+vocabulary the reference-keyframe stage first tries a BoW search
+(`_track_ref_kf_bow`); relocalization runs through the local mapper's
+`relocalizer` (models/relocalization), as in the JAX package.
 
 Two places take the correct behavior where the JAX package has a known fault:
 the fused step's local pack resolves replaced points and drops invalid ones
@@ -30,13 +33,14 @@ from __future__ import annotations
 import enum
 import math
 from dataclasses import dataclass
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
 from orbslam2commentedbyxcm_tpu_torch.models.frame import Frame
 from orbslam2commentedbyxcm_tpu_torch.models.map import Map
-from orbslam2commentedbyxcm_tpu_torch.ops import matching
+from orbslam2commentedbyxcm_tpu_torch.ops import bow, matching, twoview
 from orbslam2commentedbyxcm_tpu_torch.ops.optim import pose_optimization
 from orbslam2commentedbyxcm_tpu_torch.utils.camera import Camera
 
@@ -214,17 +218,33 @@ def _to_numpy(*tensors):
 
 class Tracking:
     def __init__(self, camera: Camera, world_map: Map, local_mapper=None,
-                 config: TrackingConfig | None = None):
+                 config: TrackingConfig | None = None, std_capacity: int | None = None):
         self.camera = camera
         self.map = world_map
         self.local_mapper = local_mapper
         self.cfg = config or TrackingConfig()
+        # the standard extractor's capacity: monocular initialization frames
+        # extracted with a larger budget are compacted to it
+        self.std_capacity = std_capacity
+        self.vocabulary = None  # set by the System when place recognition is wired
 
         self.state = TrackingState.NOT_INITIALIZED
         self.last_frame: Frame | None = None
+        self.init_ref_frame: Frame | None = None
         self.velocity: np.ndarray | None = None
         self.ref_kf_id: int = -1
         self.frames_since_kf = 0
+        self.localization_only = False
+        # visual-odometry fallback of localization-only mode: the last frame
+        # tracked < 10 real map points, its pose carried by temporal depth
+        # points (reference mbVO, src/Tracking.cc:381)
+        self.vo_mode = False
+        self._temporal: tuple | None = None  # the last frame's temporal points
+        self._last_n_map = 0  # real map points among the last stage's inliers
+        # RANSAC draws of the two-view initialization (the JAX package keys
+        # jax.random with an attempt counter)
+        self.init_generator = torch.Generator(device=world_map.device)
+        self.init_generator.manual_seed(0)
         # (timestamp, ref_kf_id, T_frame_relative_to_kf): frame poses are kept
         # relative to their reference keyframe (src/Tracking.cc:534-549), so
         # BA corrections of the keyframe move the saved trajectory too
@@ -243,11 +263,10 @@ class Tracking:
 
     def track_frame(self, frame: Frame) -> TrackingState:
         if self.state == TrackingState.NOT_INITIALIZED:
-            if not np.any(frame.depth > 0):
-                raise NotImplementedError(
-                    "monocular initialization is not ported (ROADMAP Queue 1 item 6): "
-                    "the first frame needs stereo or RGB-D depth")
-            self._stereo_initialization(frame)
+            if np.any(frame.depth > 0):
+                self._stereo_initialization(frame)
+            else:
+                self._monocular_initialization(frame)
         else:
             self.state = TrackingState.OK if self._track_normal(frame) else TrackingState.LOST
         self.last_frame = frame
@@ -259,6 +278,92 @@ class Tracking:
         return self.state
 
     # -- initialization ----------------------------------------------------
+
+    def _monocular_initialization(self, frame: Frame):
+        """Two-view bootstrap (reference MonocularInitialization +
+        CreateInitialMapMonocular, src/Tracking.cc:623-813): the first frame
+        with enough features becomes the reference; a later one is matched to
+        it (levels <= 1, as the JAX package), the H/F RANSAC reconstructs the
+        pair, the map is scaled to a median depth of 1 and refined by the
+        initial BA."""
+        cfg = self.cfg
+        if self.init_ref_frame is None:
+            if frame.n >= cfg.min_init_matches:
+                self.init_ref_frame = frame
+            return
+        ref = self.init_ref_frame
+        if frame.n < cfg.min_init_matches:
+            self.init_ref_frame = None
+            return
+
+        def view(fr):
+            d = fr.device_arrays()
+            return SimpleNamespace(uv=d["uv_und"], desc=d["desc"], level=d["level"], angle=d["angle"],
+                                   valid=d["valid"])
+
+        fa, fb = view(ref), view(frame)
+        idx, _, ok = matching.search_for_initialization(fa, fb, window=100.0, max_level=1)
+        ok_np = ok.cpu().numpy()
+        if ok_np.sum() < cfg.min_init_matches:
+            self.init_ref_frame = frame
+            return
+        res = twoview.initialize_two_view(
+            self.init_generator, torch.where(ok[:, None], fa.uv, 0.0), fb.uv[idx.long()], ok,
+            twoview.k_matrix(self.camera, fa.uv.device))
+        if not bool(res.success):
+            return
+
+        # the initial map (reference CreateInitialMapMonocular :623)
+        t21 = res.t21.cpu().numpy()
+        pts = res.points.cpu().numpy()
+        tri_ok = res.is_triangulated.cpu().numpy()
+        med_depth = float(np.median(pts[tri_ok][:, 2]))
+        if med_depth <= 0:
+            return
+        pts = pts / med_depth
+        t21[:3, 3] /= med_depth
+        ref.set_pose(np.eye(4, dtype=np.float32))
+        frame.set_pose(t21)
+
+        idx_np = idx.cpu().numpy().astype(np.int64)
+        pairs = [(int(i), int(idx_np[i])) for i in np.nonzero(tri_ok & ok_np)[0]]
+        rmap = fmap = None
+        std_cap = self.std_capacity or frame.capacity
+        if frame.capacity > std_cap:
+            # both double-budget frames back to the standard capacity,
+            # matched features first, so keyframe arrays keep one shape
+            pri_ref = np.zeros(ref.capacity, bool)
+            pri_ref[[i for i, _ in pairs]] = True
+            pri_fr = np.zeros(frame.capacity, bool)
+            pri_fr[[j for _, j in pairs]] = True
+            rmap = ref.compact_to(std_cap, pri_ref)
+            fmap = frame.compact_to(std_cap, pri_fr)
+
+        kf1 = self.map.add_keyframe(ref)
+        kf2 = self.map.add_keyframe(frame)
+        self.map.origin_kf_id = kf1.kf_id
+        for i, j in pairs:
+            ri = i if rmap is None else int(rmap[i])
+            fj = j if fmap is None else int(fmap[j])
+            if ri < 0 or fj < 0:
+                continue
+            pid = self.map.add_point(pts[i], ref.desc[ri], kf1.kf_id)
+            self.map.add_observation(pid, kf1.kf_id, ri)
+            self.map.add_observation(pid, kf2.kf_id, fj)
+            frame.map_pt[fj] = pid
+            ref.map_pt[ri] = pid
+            self.map.update_point_descriptor(pid)
+            self.map.update_point_normal_depth(pid)
+        self.map.update_connections(kf1)
+        self.map.update_connections(kf2)
+        if self.local_mapper is not None:
+            self.local_mapper.initial_ba(kf1.kf_id, kf2.kf_id)
+
+        self.ref_kf_id = kf2.kf_id
+        self.frames_since_kf = 0
+        self.velocity = frame.t_cw @ np.linalg.inv(ref.t_cw)
+        self.state = TrackingState.OK
+        self.init_ref_frame = None
 
     def _backproject(self, frame: Frame, idx: np.ndarray) -> np.ndarray:
         """Features `idx` + depth -> world points (Frame::UnprojectStereo)."""
@@ -305,6 +410,8 @@ class Tracking:
     # -- steady-state tracking --------------------------------------------
 
     def _track_normal(self, frame: Frame) -> bool:
+        if self.localization_only:
+            return self._track_localization_only(frame)
         # steady state: one fused step for both stages; any gate miss leaves
         # the frame untouched and falls through to the staged path
         if (self.velocity is not None and self.state == TrackingState.OK
@@ -317,14 +424,54 @@ class Tracking:
             ok = self._track_with_motion_model(frame)
         if not ok and self.state == TrackingState.OK:
             ok = self._track_reference_keyframe(frame)
-        # LOST: relocalization needs place recognition, which is not ported
-        # (the JAX package returns False here without a relocalizer)
+        if not ok and self.state == TrackingState.LOST:
+            ok = self._relocalize(frame)
         if not ok:
             return False
         if not self._track_local_map(frame):
             self.velocity = None
             return False
         self._finish_frame(frame)
+        return True
+
+    def _track_localization_only(self, frame: Frame) -> bool:
+        """Localization-only tracking with the visual-odometry fallback
+        (reference Track(), mbOnlyTracking branch, src/Tracking.cc:381-441):
+        with enough map matches, track as usual; in VO mode, compute both a
+        VO pose from temporal points and a relocalization, and prefer the
+        relocalization when it succeeds. No keyframe is made."""
+        ok = False
+        if self.state == TrackingState.LOST:
+            ok = self._relocalize(frame)
+            if ok:
+                self.vo_mode = False
+        elif self.vo_mode:
+            ok_vo = False
+            vo_pose = vo_map = None
+            if self.velocity is not None:
+                ok_vo = self._track_with_motion_model(frame)
+                vo_pose, vo_map = frame.t_cw.copy(), frame.map_pt.copy()
+            if self._relocalize(frame):
+                self.vo_mode = False
+                ok = True
+            elif ok_vo:
+                frame.set_pose(vo_pose)
+                frame.map_pt = vo_map
+                ok = True
+        else:
+            if self.velocity is not None:
+                ok = self._track_with_motion_model(frame)
+            if not ok:
+                ok = self._track_reference_keyframe(frame)
+        if not ok:
+            return False
+        # local-map refinement only while anchored to the map (ref :449-456)
+        if not self.vo_mode and not self._track_local_map(frame):
+            self.velocity = None
+            return False
+        if self.last_frame is not None:
+            self.velocity = frame.t_cw @ np.linalg.inv(self.last_frame.t_cw)
+        self.frames_since_kf += 1
         return True
 
     def _finish_frame(self, frame: Frame):
@@ -354,10 +501,31 @@ class Tracking:
         self._pack_cache[key] = out
         return out
 
+    def _gather_temporal(self, pids: np.ndarray, cap: int, extra):
+        """Map points `pids` packed as `_gather_points` does (uncached), then
+        the temporal points `extra` = (xyz, desc, normal, dmin, dmax, angle)
+        in the slots after them, which map to pid -2: matched, but not a map
+        point (localization-only VO, reference UpdateLastFrame
+        src/Tracking.cc:893)."""
+        n = min(len(pids), cap)
+        ne = min(len(extra[0]), cap - n)
+        pack = self.map.pack_points(pids, cap)
+        for t, a in zip(pack, extra[:5]):
+            a = np.ascontiguousarray(a[:ne])
+            t[n:n + ne] = torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a).to(t.device)
+        pack[5][n:n + ne] = True
+        slot_to_pid = np.full(cap, -1, np.int64)
+        slot_to_pid[:n] = pids[:n]
+        slot_to_pid[n:n + ne] = -2
+        return (*pack, slot_to_pid)
+
     def _match_and_optimize(self, frame: Frame, pids, t_pred, radius, cap=LOCAL_POINT_CAP,
-                            max_dist=matching.TH_HIGH, keep_existing=False, pt_angle=None):
+                            max_dist=matching.TH_HIGH, keep_existing=False, pt_angle=None, extra=None):
         cfg, cam = self.cfg, self.camera
-        *pack, slot_to_pid = self._gather_points(pids, cap)
+        if extra is None:
+            *pack, slot_to_pid = self._gather_points(pids, cap)
+        else:
+            *pack, slot_to_pid = self._gather_temporal(pids, cap, extra)
         fdev = frame.device_arrays()
         dev = self.map.device
         angle_args = {}
@@ -365,6 +533,9 @@ class Tracking:
             ang = np.zeros(cap, np.float32)
             n = min(len(pids), cap)
             ang[:n] = pt_angle[:n]
+            if extra is not None:
+                ne = min(len(extra[5]), cap - n)
+                ang[n:n + ne] = extra[5][:ne]
             angle_args = dict(pt_angle=torch.from_numpy(ang).to(dev), feat_angle=fdev["angle"])
         # pre-existing assignments keep their world point (keep_existing)
         existing_mask = frame.map_pt >= 0 if keep_existing else np.zeros(frame.capacity, bool)
@@ -389,13 +560,16 @@ class Tracking:
         # visibility counters (reference mnVisible, src/Tracking.cc:1302-1334)
         vis_pids = slot_to_pid[np.nonzero(visible)[0]]
         self.map.pt_visible[vis_pids[vis_pids >= 0]] += 1
-        matched = matched_pid >= 0
+        # -2: a temporal VO point, which constrains the pose but is no map point
+        matched = (matched_pid >= 0) | (matched_pid == -2)
         if matched.sum() < 3:
             return 0
         frame.set_pose(t_cw)
         frame.map_pt = np.where(inliers, frame.map_pt, -1)
         frame.is_outlier = matched & ~inliers
         self.map.pt_found[frame.map_pt[frame.map_pt >= 0]] += 1
+        # real map inliers, temporal points excluded (nmatchesMap, :1010)
+        self._last_n_map = int((frame.map_pt >= 0).sum())
         return int(n_inl)
 
     def _track_fused(self, frame: Frame) -> bool:
@@ -442,25 +616,59 @@ class Tracking:
         frame.is_outlier = use & ~inl2
         frame.set_pose(t_cw)
         self.map.pt_found[frame.map_pt[frame.map_pt >= 0]] += 1
+        self._last_n_map = int((frame.map_pt >= 0).sum())
         # refresh the local set for the next frame (also sets ref_kf_id, as
         # the staged path's UpdateLocalKeyFrames does)
         local_kfs = self._local_keyframes(frame)
         self._prev_local_pids = self.map.points_seen_by(local_kfs) if local_kfs else None
         return True
 
+    def _update_last_frame_temporal(self):
+        """Temporal 3-D points from the last frame's close stereo / RGB-D
+        depth, so localization-only VO survives unmapped regions (reference
+        UpdateLastFrame, src/Tracking.cc:893-960: the closest 100, or all
+        closer than ThDepth)."""
+        lf = self.last_frame
+        self._temporal = None
+        if lf is None or not np.any(lf.depth > 0):
+            return
+        cam = self.camera
+        th = self.cfg.depth_th * cam.b if cam.b > 0 else self.cfg.depth_th
+        sel = np.nonzero((lf.depth > 0) & lf.valid & (lf.map_pt < 0))[0]
+        if len(sel) == 0:
+            return
+        order = sel[np.argsort(lf.depth[sel])]
+        keep = order[(lf.depth[order] <= th) | (np.arange(len(order)) < 100)]
+        t_wc = np.linalg.inv(lf.t_cw)
+        z = lf.depth[keep]
+        u, v = lf.uv_und[keep, 0], lf.uv_und[keep, 1]
+        pc = np.stack([(u - cam.cx) / cam.fx * z, (v - cam.cy) / cam.fy * z, z], -1)
+        pw = pc @ t_wc[:3, :3].T + t_wc[:3, 3]
+        d = np.linalg.norm(pw - lf.center, axis=-1)
+        sf = lf.scale_factor
+        dmax = d * sf ** lf.level[keep]
+        dmin = dmax / sf ** (lf.n_levels - 1)
+        normal = (pw - lf.center) / np.maximum(d[:, None], 1e-9)
+        self._temporal = (pw.astype(np.float32), lf.desc[keep], normal.astype(np.float32),
+                          dmin.astype(np.float32), dmax.astype(np.float32), lf.angle[keep].astype(np.float32))
+
     def _track_with_motion_model(self, frame: Frame) -> bool:
         lf = self.last_frame
         lf.map_pt = self.map.resolve_replaced_batch(lf.map_pt)  # CheckReplacedInLastFrame
         feats = np.nonzero(lf.map_pt >= 0)[0]
         pids, first = np.unique(lf.map_pt[feats], return_index=True)
-        if len(pids) < 10:
-            return False
         # per-point source angle for the orientation-consistency histogram
         pt_angle = lf.angle[feats[first]].astype(np.float32)
+        extra = None
+        if self.localization_only:
+            self._update_last_frame_temporal()
+            extra = self._temporal
+        if len(pids) < 10 and extra is None:
+            return False
         t_pred = (self.velocity @ lf.t_cw).astype(np.float32)
         frame.set_pose(t_pred)
         n = self._match_and_optimize(frame, pids, t_pred, self.cfg.motion_search_radius,
-                                     pt_angle=pt_angle)
+                                     pt_angle=pt_angle, extra=extra)
         if n < 20:
             # widened retry (src/Tracking.cc:986-993): clear the assignments
             # and search again with twice the window
@@ -468,12 +676,17 @@ class Tracking:
             frame.is_outlier[:] = False
             frame.set_pose(t_pred)
             n = self._match_and_optimize(frame, pids, t_pred, 2.0 * self.cfg.motion_search_radius,
-                                         pt_angle=pt_angle)
+                                         pt_angle=pt_angle, extra=extra)
+        if self.localization_only:
+            # VO mode when the pose rests on < 10 real map points (ref :1010)
+            self.vo_mode = self._last_n_map < 10
+            return n >= 20
         return n >= self.cfg.min_track_inliers
 
     def _track_reference_keyframe(self, frame: Frame) -> bool:
-        """Wide-window projection search against the reference keyframe (the
-        JAX package's branch without a vocabulary)."""
+        """BoW search against the reference keyframe when a vocabulary is
+        wired (SearchByBoW, src/Tracking.cc:850), else a wide-window
+        projection search."""
         kf = self.map.keyframes.get(self.ref_kf_id)
         if kf is None:
             return False
@@ -482,8 +695,48 @@ class Tracking:
             return False
         t_pred = self.last_frame.t_cw if self.last_frame is not None else kf.t_cw
         frame.set_pose(t_pred.astype(np.float32))
+        if self._track_ref_kf_bow(frame, kf):
+            return True
         n = self._match_and_optimize(frame, pids, frame.t_cw, radius=30.0)
         return n >= self.cfg.min_track_inliers
+
+    def _track_ref_kf_bow(self, frame: Frame, kf) -> bool:
+        """BoW-node matching of the frame to the keyframe's map points (ratio
+        0.7, mutual, rotation histogram), then one pose solve on them."""
+        if self.vocabulary is None or kf.bow_feat_nodes is None:
+            return False
+        fdev = frame.device_arrays()
+        dev = fdev["desc"].device
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        _, groups, _ = bow.transform(self.vocabulary, fdev["desc"], frame.valid)
+        idx, _, ok = matching.search_by_bow(
+            fdev["desc"], t(groups), fdev["valid"],
+            t(kf.desc.view(np.int32)), t(kf.bow_feat_nodes.astype(np.int32)), t(kf.valid & (kf.map_pt >= 0)),
+            angle_a=fdev["angle"], angle_b=t(kf.angle), ratio=0.7)
+        ok, idx = ok.cpu().numpy(), idx.cpu().numpy()
+        matched_pid = np.where(ok, kf.map_pt[idx], -1)
+        if (matched_pid >= 0).sum() < 15:
+            return False
+        frame.map_pt = matched_pid
+        matched = matched_pid >= 0
+        pt_w = np.zeros((frame.capacity, 3), np.float32)
+        pt_w[matched] = self.map.pt_xyz[matched_pid[matched]]
+        cam = self.camera
+        res = pose_optimization(t(frame.t_cw), t(pt_w), fdev["obs"], t(matched), fdev["inv_sigma2"],
+                                cam.fx, cam.fy, cam.cx, cam.cy, cam.bf)
+        frame.set_pose(res.t_cw.cpu().numpy())
+        inliers = res.inliers.cpu().numpy()
+        frame.map_pt = np.where(inliers, frame.map_pt, -1)
+        frame.is_outlier = matched & ~inliers
+        self._last_n_map = int((frame.map_pt >= 0).sum())
+        return int(res.n_inliers) >= self.cfg.min_track_inliers
+
+    def _relocalize(self, frame: Frame) -> bool:
+        reloc = getattr(self.local_mapper, "relocalizer", None)
+        return reloc is not None and reloc.relocalize(frame, self)
 
     def _local_keyframes(self, frame: Frame, cap: int = 80) -> list[int]:
         """Covisibility expansion around the frame's matched points

@@ -90,6 +90,8 @@ def map_from_jax(jmap, device="cpu") -> Map:
         kf.children = set(jkf.children)
         kf.t_child_parent = None if jkf.t_child_parent is None else np.array(jkf.t_child_parent)
         kf._inv_sigma2 = None
+        kf.bow_vec = None if jkf.bow_vec is None else tuple(np.array(a) for a in jkf.bow_vec)
+        kf.bow_feat_nodes = None if jkf.bow_feat_nodes is None else np.array(jkf.bow_feat_nodes)
         m.keyframes[int(kf_id)] = kf
     return m
 

@@ -101,6 +101,20 @@ def rot_to_quat(r: torch.Tensor) -> torch.Tensor:
     return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
 
 
+def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion (w, x, y, z), normalized first -> rotation matrix."""
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack(
+        [
+            torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], dim=-1),
+            torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], dim=-1),
+            torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
 def quat_to_rotvec(q: torch.Tensor) -> torch.Tensor:
     q = q * torch.where(q[..., :1] < 0, -1.0, 1.0)
     w = torch.clamp(q[..., 0], -1.0, 1.0)

@@ -1,7 +1,8 @@
-"""Synthetic box-orbit sequence with exact ground truth (numpy only).
+"""Synthetic sequences with exact ground truth (numpy only).
 
-Counterpart of `BoxSequence` and `default_camera` in
-orbslam2commentedbyxcm_tpu/utils/synth.py. The textures and poses are built
+Counterpart of `SyntheticSequence` (textured fronto-parallel planes),
+`BoxSequence` (a camera orbiting inside a textured box) and `default_camera`
+in orbslam2commentedbyxcm_tpu/utils/synth.py. The textures and poses are built
 with the same numpy calls from the same seed, so both packages see the same
 scene. Rendering does not use OpenCV: `_warp_perspective` reproduces
 cv2.warpPerspective(INTER_LINEAR, BORDER_CONSTANT) with an inverse homography,
@@ -56,6 +57,93 @@ def _warp_perspective(src: np.ndarray, hmg: np.ndarray, width: int, height: int,
     one = np.float32(1.0)
     return ((one - ay) * (one - ax) * tap(sy, sx) + (one - ay) * ax * tap(sy, sx + 1)
             + ay * (one - ax) * tap(sy + 1, sx) + ay * ax * tap(sy + 1, sx + 1))
+
+
+@dataclasses.dataclass
+class SyntheticSequence:
+    """Textured planes z = depth (the near one a patch, so the scene is not
+    planar), rendered far to near through exact plane-induced homographies.
+    `pose(i)` is Tcw; the trajectories are arc (sideways + gentle yaw),
+    sideways, outback (out and back to the start) and forward."""
+
+    camera: Camera
+    n_frames: int = 120
+    depths: tuple = (6.0, 10.0)
+    half_extents: tuple = (2.5, 16.0)
+    trajectory: str = "arc"
+    seed: int = 0
+    tex_size: int = 1024
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        self.textures = [_make_texture(rng, self.tex_size) for _ in self.depths]
+        # world -> texture pixel: u_tex = s (x + e), v_tex = s (y + e)
+        self.tex_scales = [self.tex_size / (2 * e) for e in self.half_extents]
+
+    def pose(self, i: int) -> np.ndarray:
+        """Ground-truth Tcw for frame i (extrapolates past n_frames)."""
+        t = i / max(self.n_frames - 1, 1)
+        yaw = 0.0
+        if self.trajectory == "sideways":
+            c = np.array([2.0 * t, 0.1 * np.sin(4 * np.pi * t), 0.0])
+        elif self.trajectory == "outback":
+            c = np.array([3.0 * np.sin(np.pi * t), 0.05 * np.sin(2 * np.pi * t), 0.0])
+        elif self.trajectory == "forward":
+            c = np.array([0.3 * np.sin(2 * np.pi * t), 0.0, 2.0 * t])
+        else:  # arc
+            c = np.array([2.5 * t, 0.15 * np.sin(2 * np.pi * t), 0.5 * np.sin(np.pi * t)])
+            yaw = 0.25 * np.sin(2 * np.pi * t)
+        cy, sy = np.cos(yaw), np.sin(yaw)
+        r_wc = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]], np.float64)
+        t_cw = np.eye(4, dtype=np.float32)
+        t_cw[:3, :3] = r_wc.T
+        t_cw[:3, 3] = -r_wc.T @ c
+        return t_cw
+
+    def render(self, i: int) -> np.ndarray:
+        return self.render_pose(self.pose(i))
+
+    def render_right(self, i: int) -> np.ndarray:
+        """Right-stereo view: camera displaced by baseline b along +x."""
+        t_rl = np.eye(4, dtype=np.float64)
+        t_rl[0, 3] = -self.camera.b
+        return self.render_pose(t_rl @ self.pose(i).astype(np.float64))
+
+    def render_pose(self, t_cw: np.ndarray) -> np.ndarray:
+        cam = self.camera
+        k = cam.K.astype(np.float64)
+        t_cw = np.asarray(t_cw, np.float64)
+        r, t = t_cw[:3, :3], t_cw[:3, 3]
+        img = np.zeros((cam.height, cam.width), np.float32)
+        order = sorted(zip(self.textures, self.depths, self.tex_scales, self.half_extents),
+                       key=lambda z: -z[1])
+        for tex, depth, s, e in order:
+            # texture pixel -> world (x, y, 1) -> camera -> image
+            a = np.array([[1 / s, 0, -e], [0, 1 / s, -e], [0, 0, 1]])
+            hmg = k @ np.column_stack([r[:, 0], r[:, 1], r[:, 2] * depth + t]) @ a
+            warped = _warp_perspective(tex, hmg, cam.width, cam.height, border=-1.0)
+            img = np.where(warped >= 0, warped, img)
+        return img.astype(np.float32)
+
+    def depth_map(self, i: int) -> np.ndarray:
+        """Exact per-pixel depth (RGB-D)."""
+        cam = self.camera
+        k = cam.K.astype(np.float64)
+        t_cw = self.pose(i).astype(np.float64)
+        r, t = t_cw[:3, :3], t_cw[:3, 3]
+        us, vs = np.meshgrid(np.arange(cam.width), np.arange(cam.height))
+        rays = np.linalg.inv(k) @ np.stack([us.ravel() + 0.0, vs.ravel() + 0.0, np.ones(us.size)])
+        r_wc = r.T
+        d_w = r_wc @ rays
+        c_w = -r_wc @ t
+        depth = np.full(us.size, np.inf)
+        for plane_depth, e in sorted(zip(self.depths, self.half_extents), key=lambda z: -z[0]):
+            lam = (plane_depth - c_w[2]) / d_w[2]
+            pw = c_w[:, None] + lam * d_w
+            inside = (np.abs(pw[0]) < e) & (np.abs(pw[1]) < e) & (lam > 0)
+            zc = (r @ pw + t[:, None])[2]
+            depth = np.where(inside, zc, depth)
+        return depth.reshape(cam.height, cam.width).astype(np.float32)
 
 
 @dataclasses.dataclass

@@ -1,5 +1,6 @@
 """The port never imports JAX: every module of the package, one CPU tracking
-step and three RGB-D frames through the System, in a fresh interpreter."""
+step, three RGB-D frames through the System, the shipped vocabulary and three
+monocular frames with place recognition, in a fresh interpreter."""
 
 import os
 import subprocess
@@ -32,6 +33,15 @@ slam = System(cam, Sensor.RGBD, config=TrackingConfig(n_features=300), enable_lo
               device="cpu")
 poses = [slam.track_rgbd(seq.render(i), seq.depth_map(i), i / 30.0) for i in range(3)]
 assert all(p is not None and p.shape == (4, 4) for p in poses), poses
+from orbslam2commentedbyxcm_tpu_torch.ops import bow
+from orbslam2commentedbyxcm_tpu_torch.utils.synth import SyntheticSequence
+voc = bow.bootstrap_vocabulary()
+assert voc.n_words > 700000
+mono = System(cam, Sensor.MONOCULAR, config=TrackingConfig(n_features=300), enable_loop_closing=False,
+              device="cpu", vocabulary=voc)
+mseq = SyntheticSequence(camera=cam, n_frames=30, trajectory="sideways", tex_size=256)
+states = [(mono.track_monocular(mseq.render(i), i / 30.0), mono.get_tracking_state()) for i in range(3)]
+assert states[-1][1].name in ("OK", "NOT_INITIALIZED"), states
 bad = sorted(m for m in sys.modules if m in ("jax", "orbslam2commentedbyxcm_tpu")
              or m.startswith(("jax.", "jaxlib", "orbslam2commentedbyxcm_tpu.")))
 print("JAX-MODULES:", bad)

@@ -127,3 +127,103 @@ def test_project_and_match_exact(rng):
     raw = tm.hamming_matrix(desc_to_torch(p["pt_desc"]), desc_to_torch(p["feat_desc"]))
     assert int((raw == raw.min(dim=0).values).sum(dim=0).gt(1).sum()) > 10
     assert len(np.unique(bt[okj])) == okj.sum()  # uniqueness held
+
+
+def _tied_distances(rng, n=200, m=260):
+    """Integer distances with many ties: duplicated columns and rows."""
+    a, b = _desc(rng, n), _desc(rng, m)
+    b[:40] = a[:40]
+    b[40:80] = a[:40]                 # two equal best columns per row: the first wins
+    b[80:100, :] = a[40:60]
+    b[80:100, 1] ^= np.uint32(0x00FF0000)  # distance 8
+    a[60:70] = a[40:50]               # equal rows: mutual ties
+    return a, b
+
+
+def test_hamming_pairs_exact(rng):
+    a, b = _desc(rng, 300), _desc(rng, 300)
+    b[:30] = a[:30]
+    j = np.asarray(jm.hamming_pairs(jnp.asarray(a), jnp.asarray(b)))
+    np.testing.assert_array_equal(tm.hamming_pairs(desc_to_torch(a), desc_to_torch(b)).numpy(), j)
+
+
+def test_match_nn_exact_with_ties(rng):
+    a, b = _tied_distances(rng)
+    d = np.asarray(jm.hamming_matrix(jnp.asarray(a), jnp.asarray(b)))
+    valid_a, valid_b = rng.random(len(a)) < 0.9, rng.random(len(b)) < 0.9
+    mask = rng.random(d.shape) < 0.8
+    for kw in (dict(), dict(ratio=0.9), dict(ratio=0.75, mutual=True), dict(max_dist=100, mutual=True)):
+        for va, vb, mk in ((None, None, None), (valid_a, valid_b, mask)):
+            j = jm.match_nn(jnp.asarray(d), None if va is None else jnp.asarray(va),
+                            None if vb is None else jnp.asarray(vb), None if mk is None else jnp.asarray(mk), **kw)
+            t = tm.match_nn(torch.from_numpy(d), None if va is None else torch.from_numpy(va),
+                            None if vb is None else torch.from_numpy(vb), None if mk is None else torch.from_numpy(mk),
+                            **kw)
+            for x, y in zip(t, j):
+                np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+            assert t[2].sum() > 0
+
+
+def test_window_mask_exact(rng):
+    uv_a = rng.uniform(0, 320, (150, 2)).astype(np.float32)
+    uv_b = np.round(uv_a[rng.integers(0, 150, 170)] + rng.normal(0, 6, (170, 2))).astype(np.float32)
+    la, lb = rng.integers(0, 8, 150).astype(np.int32), rng.integers(0, 8, 170).astype(np.int32)
+    radius = rng.uniform(2, 10, 150).astype(np.float32)
+    for r in (5.0, radius):
+        j = jm.window_mask(jnp.asarray(uv_a), jnp.asarray(uv_b), jnp.asarray(r) if np.ndim(r) else r,
+                           jnp.asarray(la), jnp.asarray(lb), 1)
+        t = tm.window_mask(torch.from_numpy(uv_a), torch.from_numpy(uv_b), torch.from_numpy(r) if np.ndim(r) else r,
+                           torch.from_numpy(la), torch.from_numpy(lb), 1)
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+
+
+class _Feats:
+    def __init__(self, lib, **arrays):
+        for k, v in arrays.items():
+            setattr(self, k, lib(v))
+
+
+def test_search_for_initialization_exact(rng):
+    n = 300
+    uv = rng.uniform(20, 300, (n, 2)).astype(np.float32)
+    desc = _desc(rng, n)
+    level = rng.integers(0, 3, n).astype(np.int32)
+    angle = rng.uniform(-np.pi, np.pi, n).astype(np.float32)
+    perm = rng.permutation(n)
+    uv2 = (uv[perm] + rng.normal(0, 4, (n, 2))).astype(np.float32)
+    desc2 = desc[perm].copy()
+    desc2[::3, 2] ^= np.uint32(0xF0F0)  # distance 8 on a third
+    desc2[1::9] = desc2[0::9][: len(desc2[1::9])]  # duplicated descriptors: ties
+    angle2 = (angle[perm] + 0.2 + rng.normal(0, 0.02, n)).astype(np.float32)
+    valid = rng.random(n) < 0.95
+    fa = dict(uv=uv, desc=desc, level=level, angle=angle, valid=valid)
+    fb = dict(uv=uv2, desc=desc2, level=level[perm], angle=angle2, valid=valid[perm])
+    j = jm.search_for_initialization(_Feats(jnp.asarray, **fa), _Feats(jnp.asarray, **fb), window=30.0)
+    def to_torch(v):
+        return desc_to_torch(v) if v.dtype == np.uint32 else torch.from_numpy(v)
+
+    t = tm.search_for_initialization(_Feats(to_torch, **fa), _Feats(to_torch, **fb), window=30.0)
+    for x, y in zip(t, j):
+        np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+    assert t[2].sum() > 50
+
+
+def test_search_by_bow_exact(rng):
+    a, b = _tied_distances(rng)
+    ga = rng.integers(-1, 12, len(a)).astype(np.int32)
+    gb = rng.integers(0, 12, len(b)).astype(np.int32)
+    gb[:100] = np.concatenate([ga[:40], ga[:40], ga[40:60]]).clip(0)
+    va, vb = rng.random(len(a)) < 0.95, rng.random(len(b)) < 0.95
+    ang_a = rng.uniform(-np.pi, np.pi, len(a)).astype(np.float32)
+    ang_b = rng.uniform(-np.pi, np.pi, len(b)).astype(np.float32)
+    for kw in (dict(), dict(mutual=False), dict(ratio=0.7)):
+        for angles in (False, True):
+            extra_j = dict(angle_a=jnp.asarray(ang_a), angle_b=jnp.asarray(ang_b)) if angles else {}
+            extra_t = dict(angle_a=torch.from_numpy(ang_a), angle_b=torch.from_numpy(ang_b)) if angles else {}
+            j = jm.search_by_bow(jnp.asarray(a), jnp.asarray(ga), jnp.asarray(va), jnp.asarray(b), jnp.asarray(gb),
+                                 jnp.asarray(vb), **extra_j, **kw)
+            t = tm.search_by_bow(desc_to_torch(a), torch.from_numpy(ga), torch.from_numpy(va), desc_to_torch(b),
+                                 torch.from_numpy(gb), torch.from_numpy(vb), **extra_t, **kw)
+            for x, y in zip(t, j):
+                np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+            assert t[2].sum() > 5

@@ -90,19 +90,35 @@ def test_system_matches_jax(sensor, tmp_path):
 
 
 def test_unported_options_raise():
+    """Loop closing, the async pipeline, the tracer, the mesh and map
+    save/load raise, naming their ROADMAP.md item; monocular SLAM, a
+    vocabulary and localization mode are ported and construct."""
     cam = convert.camera_from_jax(CAM)
-    for kw in (dict(sensor=tsystem.Sensor.MONOCULAR, enable_loop_closing=False),
-               dict(sensor=tsystem.Sensor.RGBD),
-               dict(sensor=tsystem.Sensor.RGBD, enable_loop_closing=False, vocabulary="bootstrap"),
-               dict(sensor=tsystem.Sensor.RGBD, enable_loop_closing=False, async_mapping=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for kw, item in ((dict(sensor=tsystem.Sensor.RGBD), 9),
+                     (dict(sensor=tsystem.Sensor.MONOCULAR, vocabulary="bootstrap"), 9),
+                     (dict(sensor=tsystem.Sensor.RGBD, enable_loop_closing=False, async_mapping=True), 10),
+                     (dict(sensor=tsystem.Sensor.RGBD, enable_loop_closing=False, tracer=object()), 10),
+                     (dict(sensor=tsystem.Sensor.RGBD, enable_loop_closing=False, mesh=object()), 11)):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 item {item}"):
             tsystem.System(cam, device="cpu", **kw)
     s = tsystem.System(cam, tsystem.Sensor.RGBD, enable_loop_closing=False, device="cpu")
-    for call in (s.activate_localization_mode, lambda: s.save_map("x"), lambda: s.load_map("x")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for call in (lambda: s.save_map("x"), lambda: s.load_map("x")):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
             call()
     with pytest.raises(ValueError):
         s.track_stereo(np.zeros((240, 320)), np.zeros((240, 320)), 0.0)
+    with pytest.raises(ValueError):
+        s.track_monocular(np.zeros((240, 320)), 0.0)
+    s.activate_localization_mode()
+    assert s.tracking.localization_only and s.local_mapping.paused
+    s.deactivate_localization_mode()
+    mono = tsystem.System(cam, tsystem.Sensor.MONOCULAR, enable_loop_closing=False, device="cpu",
+                          vocabulary="bootstrap")
+    assert mono.keyframe_db is not None and mono.local_mapping.relocalizer is not None
+    assert mono.tracking.vocabulary is mono.vocabulary
+    if not torch.cuda.is_available():  # no quiet fallback to the CPU
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tsystem.System(cam, tsystem.Sensor.MONOCULAR, enable_loop_closing=False, device="cuda")
 
 
 @pytest.fixture
