@@ -6,8 +6,9 @@
 Builds the hand-written CUDA kernels from orbslam2commentedbyxcm_tpu_torch/csrc,
 checks each against its plain torch twin on the card, and drives the port the
 way a user would: the per-frame tracking step, then the System's synchronous
-RGB-D, stereo and monocular SLAM, relocalization with the shipped vocabulary
-and localization mode. Phases, each printing one line:
+RGB-D, stereo and monocular SLAM, relocalization with the shipped vocabulary,
+localization mode, and loop closing with map save and load. Phases, each
+printing one line:
 
   1. device   the card's name and power limit (nvidia-smi), TF32 flags
   2. build    nvcc build of both kernels (one nvcc per source, in parallel), seconds
@@ -38,7 +39,18 @@ and localization mode. Phases, each printing one line:
               relocalization frame's time split, vocabulary load / upload
  11. loc      localization mode on frames 20-29 of the same System, then the
               visual-odometry fallback: frozen map, tracked frames, launches
- 12. kernels  one JSON line: per kernel, launches summed over phases 6-11,
+ 12. loop     System(Sensor.RGBD) with loop closing on and vocabulary=None
+              until its lazy trainer has trained a vocabulary on the card
+              (the tree bit-equal to one trained on the CPU), then with
+              vocabulary="bootstrap" over a 130-frame BoxSequence orbit of
+              1.3 turns: the loop is detected, its Sim3 computed, the map
+              corrected, the essential graph optimized and global BA run on
+              its thread; closures adjudicated against ground truth, ATE
+              against the JAX package's and against the same frames with
+              loop closing off, the drift at the loop edge cut; the loop
+              keyframe's time split; then save_map, load_map into a fresh
+              System and one revisited frame relocalized
+ 13. kernels  one JSON line: per kernel, launches summed over phases 6-12,
               error, times, bound
 
 The last line is {"ok": true, "device": {...}}. Any failed phase exits non-zero
@@ -68,6 +80,17 @@ N_RGBD, N_STEREO, N_MONO = 60, 30, 60
 JAX_ATE_RGBD, JAX_ATE_STEREO, JAX_ATE_MONO = 0.0298, 0.0408, 0.0137
 N_RELOC_MAP, REVISIT = 40, 15   # relocalization: frames mapped, first revisited frame
 RELOC_MAX_POS_M, RELOC_MAX_ROT_DEG = 0.05, 2.0
+# loop closing: the fewest orbit frames at which the JAX package closes the
+# loop on the CPU, its ATE there (frame trajectory after global BA with each
+# keyframe frame at its keyframe, as the port records it; SE3 alignment;
+# tools/jax_reference_ate.py loop), and the frame relocalized against the
+# reloaded map
+N_LOOP, JAX_ATE_LOOP, LOOP_RELOC_FRAME = 130, 0.0205, 2
+# a correction that did little fails these: the ATE must be at most
+# LOOP_ATE_CUT x the loop-off ATE of frames 0 to the loop frame, and the loop
+# edge's drift (the error of the relative pose between the two frames it
+# joins) at most LOOP_DRIFT_CUT x the same frames' drift with loop closing off
+LOOP_ATE_CUT, LOOP_DRIFT_CUT = 0.9, 0.5
 
 
 def _fail(msg: str) -> None:
@@ -179,6 +202,7 @@ def phase_device(torch):
     print(f"[1 device] {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
           f"matmul.allow_tf32={tf32[0]} cudnn.allow_tf32={tf32[1]} float32_matmul_precision={tf32[2]}")
     _check(not tf32[0] and tf32[2] == "highest", "float32 matmuls would run in TF32")
+    return card
 
 
 def phase_build():
@@ -739,6 +763,235 @@ def phase_localization(torch, dev, slam, seq):
     return launches
 
 
+def adjudicate_loops(slam, seq, min_kf_gap: int = 10, colocate_radius: float = 1.0,
+                     max_view_angle_deg: float = 40.0) -> dict:
+    """Ground-truth loop adjudication (benchmarks/gauntlet.py's rule, in
+    numpy): a keyframe pair is co-located when its true camera centers are
+    within `colocate_radius` and its viewing directions within
+    `max_view_angle_deg`, `min_kf_gap` or more keyframes apart. A recorded
+    loop edge between co-located keyframes is a hit, any other a false
+    closure; a co-located pair neither covisible, parent-linked nor
+    loop-linked is missed."""
+    kfs = sorted(slam.map.good_keyframes(), key=lambda k: k.kf_id)
+    gt = [seq.pose(int(round(kf.timestamp * 30.0))) for kf in kfs]
+    centers = np.stack([-t[:3, :3].T @ t[:3, 3] for t in gt])
+    views = np.stack([t[:3, :3].T @ np.array([0.0, 0.0, 1.0]) for t in gt])
+    ids = np.array([kf.kf_id for kf in kfs])
+    dist = np.linalg.norm(centers[:, None] - centers[None, :], axis=-1)
+    co = ((dist < colocate_radius) & (np.clip(views @ views.T, -1, 1) > np.cos(np.deg2rad(max_view_angle_deg)))
+          & (np.abs(ids[:, None] - ids[None, :]) >= min_kf_gap))
+    slot = {kf.kf_id: i for i, kf in enumerate(kfs)}
+    loop_pairs = {tuple(sorted((slot[kf.kf_id], slot[le]))) for kf in kfs for le in kf.loop_edges if le in slot}
+    hits = sum(1 for a, b in loop_pairs if co[a, b])
+    missed = sum(1 for a, b in zip(*np.triu_indices(len(kfs), 1)) if co[a, b] and not (
+        kfs[b].kf_id in kfs[a].covis or kfs[a].parent == kfs[b].kf_id or kfs[b].parent == kfs[a].kf_id
+        or (a, b) in loop_pairs))
+    return {"loop_edges": len(loop_pairs), "hits": hits, "false_closures": len(loop_pairs) - hits,
+            "colocated_pairs": int(np.triu(co, 1).sum()), "missed": missed}
+
+
+def _loop_config():
+    from orbslam2commentedbyxcm_tpu_torch.models.tracking import TrackingConfig
+
+    return TrackingConfig(max_frames_between_kf=4, kf_tracked_ratio=0.95, motion_search_radius=20.0)
+
+
+def _lazy_vocabulary_run(torch, dev, cam, frames, timer):
+    """System(RGBD, vocabulary=None, loop closing on): tracks until the lazy
+    trainer has trained a vocabulary on the card from the first keyframes,
+    then trains the same descriptors on the CPU and checks the trees are bit
+    for bit equal. Returns (frames tracked, rows, words, card s, CPU s)."""
+    from orbslam2commentedbyxcm_tpu_torch.models.system import Sensor, System
+    from orbslam2commentedbyxcm_tpu_torch.ops import bow
+
+    slam = System(cam, Sensor.RGBD, config=_loop_config(), vocabulary=None, enable_loop_closing=True, device=dev)
+    rows = []
+    for i, (img, depth) in enumerate(frames):
+        _check(_track_timed(slam.track_rgbd, rows, (img, depth, i / 30.0), timer) is not None,
+               f"lazy vocabulary: frame {i} not tracked")
+        if slam.vocabulary is not None:
+            break
+    _check(slam.vocabulary is not None, f"lazy vocabulary: none trained in {len(frames)} frames")
+    _check(slam.loop_closing is not None and slam.local_mapping.loop_closer is slam.loop_closing,
+           "lazy vocabulary: loop closing not wired after training")
+    # the same descriptors as System.train_vocabulary_from_map, trained again
+    # on the card (timed) and on the CPU
+    descs = np.concatenate([kf.desc[kf.valid] for kf in slam.map.good_keyframes()])
+    trees, secs = [], []
+    for where in (dev, "cpu"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trees.append(bow.train_vocabulary(descs, k=8, depth=3, device=where))
+        secs.append(time.perf_counter() - t0)
+    for name in ("node_desc", "node_children", "node_parent", "node_level", "word_id", "word_weight", "word_node"):
+        for voc in (slam.vocabulary, trees[0]):
+            _check(np.array_equal(getattr(voc, name), getattr(trees[1], name)),
+                   f"lazy vocabulary: {name} of the card's tree differs from the CPU's")
+    slam.shutdown()
+    return len(rows), rows, slam.vocabulary.n_words, secs[0], secs[1]
+
+
+def _loop_run(torch, dev, cam, seq, frames, loop_closing: bool, timer):
+    """System(RGBD, vocabulary="bootstrap") over `frames`; returns (System,
+    rows of _track_timed, frame at which the first loop closed or None)."""
+    from orbslam2commentedbyxcm_tpu_torch.models.system import Sensor, System
+
+    slam = System(cam, Sensor.RGBD, config=_loop_config(), vocabulary="bootstrap",
+                  enable_loop_closing=loop_closing, device=dev)
+    rows, loop_frame, kf_new = [], None, []
+    for i, (img, depth) in enumerate(frames):
+        kf_before = slam.map.next_kf_id
+        _track_timed(slam.track_rgbd, rows, (img, depth, i / 30.0), timer)
+        kf_new.append(slam.map.next_kf_id > kf_before)
+        if loop_frame is None and loop_closing and slam.loop_closing.n_loops_closed:
+            loop_frame = i
+    slam.shutdown()  # waits for global BA and raises what its thread raised
+    return slam, rows, kf_new, loop_frame
+
+
+def _frame_poses(slam) -> dict:
+    """{frame index: Tcw} of the frame trajectory (after global BA)."""
+    return {int(round(ts * 30.0)): t for ts, t in slam.frame_trajectory()}
+
+
+def _ate(poses: dict, seq, frames) -> float:
+    """SE3-aligned ATE (m) of the poses at `frames`."""
+    from orbslam2commentedbyxcm_tpu_torch.utils.evaluation import ate_rmse, positions_from_tcw
+
+    frames = [f for f in frames if f in poses]
+    return ate_rmse(positions_from_tcw(np.stack([poses[f] for f in frames])),
+                    positions_from_tcw(np.stack([seq.pose(f) for f in frames])), with_scale=False)
+
+
+def _drift(poses: dict, seq, a: int, b: int) -> tuple[float, float]:
+    """(m, deg) error of the relative pose T_a T_b^-1 between frames a and b
+    against ground truth: the drift a loop edge between them corrects."""
+    ta, tb = (np.asarray(poses[f], np.float64) for f in (a, b))
+    err = (ta @ np.linalg.inv(tb)) @ np.linalg.inv(seq.pose(a) @ np.linalg.inv(seq.pose(b)))
+    ang = math.degrees(math.acos(max(-1.0, min(1.0, (float(np.trace(err[:3, :3])) - 1.0) / 2.0))))
+    return float(np.linalg.norm(err[:3, 3])), ang
+
+
+def phase_loop(torch, dev, card: str):
+    """Loop closing on the card: a BoxSequence orbit that comes back to its
+    start, driven through System with loop closing on (launches counted),
+    the same frames with it off (the comparison), then save / load /
+    relocalize. Returns the kernel launches."""
+    import os
+    import tempfile
+    import time as _time
+
+    from orbslam2commentedbyxcm_tpu_torch.models.system import Sensor, System
+    from orbslam2commentedbyxcm_tpu_torch.models.tracking import TrackingState
+    from orbslam2commentedbyxcm_tpu_torch.utils.synth import BoxSequence, default_camera
+
+    cam = default_camera(640, 480)
+    seq = BoxSequence(camera=cam, n_frames=N_LOOP, turns=1.3)
+    frames = [(seq.render(i), seq.depth_map(i)) for i in range(N_LOOP)]
+    k1c, k2c = _launch_counters()
+    timer = _EventTimer(torch)
+    torch.cuda.synchronize()
+    k1c.launches = k2c.launches = 0
+    n_lazy, lazy_rows, lazy_words, lazy_card_s, lazy_cpu_s = _lazy_vocabulary_run(torch, dev, cam, frames[:40], timer)
+    k1_lazy = sorted({r[2] for r in lazy_rows})
+    _check(k1_lazy == [1], f"lazy vocabulary: K1 launches per frame {k1_lazy}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    slam, rows, kf_new, loop_frame = _loop_run(torch, dev, cam, seq, frames, True, timer)
+    peak_mib = torch.cuda.max_memory_allocated(dev) / 2**20
+    launches = {"fused_frontend": k1c.launches, "pose_optimization_fused": k2c.launches}
+    lc = slam.loop_closing
+    _check(all(r[0] is not None for r in rows), f"loop: {sum(r[0] is None for r in rows)} frames not tracked")
+    _check(not slam._archived_kf_trajectory, "loop: tracking was lost and the System reset")
+    _check(lc.n_loops_closed >= 1 and loop_frame is not None, f"loop: no loop closed over {N_LOOP} frames, "
+           f"stats {lc.stats}")
+    adj = adjudicate_loops(slam, seq)
+    _check(adj["loop_edges"] >= 1, f"loop: no loop edge recorded ({adj})")
+    _check(adj["false_closures"] == 0, f"loop: false closures by ground truth ({adj})")
+    _check(lc.gba.n_completed >= 1, f"loop: global BA never completed (aborted {lc.gba.n_aborted})")
+    split = lc.closure_splits[0]
+    # the frames of the two keyframes the first loop edge joins (loop-edge
+    # endpoints are never culled)
+    edge = tuple(int(round(slam.map.keyframes[k].timestamp * 30.0)) for k in (split["kf_id"], split["loop_kf_id"]))
+    poses = _frame_poses(slam)
+    ate, ate_to_loop = _ate(poses, seq, range(N_LOOP)), _ate(poses, seq, range(loop_frame + 1))
+    drift = _drift(poses, seq, *edge)
+    _check({r[2] for r in rows} == {1}, f"loop: K1 launches per frame {sorted({r[2] for r in rows})}")
+    k2_per = [r[3] for r in rows[1:]]
+    _check(min(k2_per) >= 2, f"loop: K2 launched {min(k2_per)} times on a tracked frame (want >= 2)")
+
+    # the same frames with loop closing off (not counted: a comparison run)
+    k1_before, k2_before = k1c.launches, k2c.launches
+    off, _, _, _ = _loop_run(torch, dev, cam, seq, frames, False, timer)
+    poses_off = _frame_poses(off)
+    ate_off, ate_off_to_loop = _ate(poses_off, seq, range(N_LOOP)), _ate(poses_off, seq, range(loop_frame + 1))
+    drift_off = _drift(poses_off, seq, *edge)
+    del off
+    k1c.launches, k2c.launches = k1_before, k2_before
+    bound = 1.5 * JAX_ATE_LOOP + 0.01
+    _check(ate <= bound, f"loop: ATE {ate:.4f} m over {bound:.4f} m (1.5 x JAX {JAX_ATE_LOOP} m + 1 cm)")
+    _check(ate <= LOOP_ATE_CUT * ate_off_to_loop,
+           f"loop: ATE {ate:.4f} m with loop closing, {ate_off_to_loop:.4f} m without over frames 0-{loop_frame} "
+           f"(want <= {LOOP_ATE_CUT} x)")
+    _check(drift[0] <= LOOP_DRIFT_CUT * drift_off[0],
+           f"loop: drift between frames {edge[0]} and {edge[1]} {drift[0]:.4f} m with loop closing, "
+           f"{drift_off[0]:.4f} m without (want <= {LOOP_DRIFT_CUT} x)")
+
+    # save, load into a fresh System, relocalize on a revisited frame
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "map.npz")
+        t0 = _time.perf_counter()
+        slam.save_map(path)
+        save_s = _time.perf_counter() - t0
+        size_mib = os.path.getsize(path) / 2**20
+        fresh = System(cam, Sensor.RGBD, config=_loop_config(), enable_loop_closing=False, device=dev)
+        t0 = _time.perf_counter()
+        fresh.load_map(path)
+        torch.cuda.synchronize()
+        load_s = _time.perf_counter() - t0
+    _check(fresh.get_tracking_state() == TrackingState.LOST, "loop: a loaded System is not LOST")
+    _check(len(fresh.map.good_keyframes()) == len(slam.map.good_keyframes())
+           and fresh.map.n_valid_points() == slam.map.n_valid_points(), "loop: the reloaded map differs")
+    fresh.activate_localization_mode()
+    reloc_rows = []
+    img, depth = frames[LOOP_RELOC_FRAME]
+    pose = _track_timed(fresh.track_rgbd, reloc_rows, (img, depth, 100.0), timer)
+    _check(pose is not None, f"loop: frame {LOOP_RELOC_FRAME} not relocalized against the reloaded map")
+    pos, rot = pose_errors(pose, seq.pose(LOOP_RELOC_FRAME) @ np.linalg.inv(seq.pose(0)))
+    _check(pos <= RELOC_MAX_POS_M and rot <= RELOC_MAX_ROT_DEG,
+           f"loop: relocalized pose error {pos:.4f} m / {rot:.4f} deg over {RELOC_MAX_POS_M} m / {RELOC_MAX_ROT_DEG} deg")
+    launches["fused_frontend"] += reloc_rows[0][2]
+    launches["pose_optimization_fused"] += reloc_rows[0][3]
+
+    parts = ["bow_transform", "detect", "bow_match", "ransac", "grow_refine", "guided", "correction",
+             "essential_graph", "gba_launch"]
+    g = lc.gba.last_stats
+    kf_ms = [rows[i][1] for i in range(1, N_LOOP) if kf_new[i] and i != loop_frame]
+    plain_ms = [rows[i][1] for i in range(1, N_LOOP) if not kf_new[i]]
+    print(f"[12 loop] {card} | System(RGBD, vocabulary=None, loop closing, device={dev}): the lazy trainer's "
+          f"{lazy_words}-word tree after {n_lazy} frames, bit-equal to the CPU's (train_vocabulary on the card "
+          f"{1e3 * lazy_card_s:.1f} ms, CPU {1e3 * lazy_cpu_s:.1f} ms) | "
+          f"System(RGBD, vocabulary=bootstrap, loop closing, device={dev}), BoxSequence orbit "
+          f"1.3 turns, 640x480, 1000 features, {N_LOOP} frames: {lc.n_loops_closed} loop(s) closed, the first on frame "
+          f"{loop_frame} (keyframe {split['kf_id']} to keyframe {split['loop_kf_id']}), ground truth: {adj}; "
+          f"{len(slam.map.good_keyframes())} keyframes, {slam.map.n_valid_points()} points, stats {lc.stats} | "
+          f"ATE {ate:.4f} m (bound {bound:.4f} m = 1.5 x JAX CPU {JAX_ATE_LOOP} m + 1 cm; frames 0-{loop_frame}: "
+          f"{ate_to_loop:.4f} m); loop closing off, same frames: {ate_off:.4f} m (frames 0-{loop_frame}: "
+          f"{ate_off_to_loop:.4f} m, bound {LOOP_ATE_CUT} x) | drift between frames {edge[0]} and {edge[1]}: "
+          f"{drift[0]:.4f} m / {drift[1]:.4f} deg, loop closing off {drift_off[0]:.4f} m / {drift_off[1]:.4f} deg (bound "
+          f"{LOOP_DRIFT_CUT} x) | loop keyframe's frame "
+          f"{rows[loop_frame][1]:.3f} ms (CUDA events), split (host clock, ms): "
+          + "; ".join(f"{k} {1e3 * split.get(k, 0.0):.3f}" for k in parts)
+          + f"; essential graph {split['eg_vertices']} vertices, {split['eg_edges']} edges, {split['eg_iterations']} LM "
+          f"iterations | global BA on its thread: {1e3 * g['seconds']:.3f} ms, {g['poses']} poses, {g['points']} points, "
+          f"{g['chunks']} chunks; peak {peak_mib:.1f} MiB over the loop-closing run "
+          f"(torch.cuda.max_memory_allocated) | "
+          f"per-frame ms: ordinary ({len(plain_ms)}) {_stats(plain_ms)}; keyframe ({len(kf_ms)}) {_stats(kf_ms)} | "
+          f"save_map {1e3 * save_s:.1f} ms ({size_mib:.1f} MiB), load_map {1e3 * load_s:.1f} ms, frame "
+          f"{LOOP_RELOC_FRAME} relocalized against the reloaded map within {pos:.4f} m / {rot:.4f} deg in "
+          f"{reloc_rows[0][1]:.3f} ms")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -756,7 +1009,7 @@ def main() -> int:
         return 2
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    phase_device(torch)
+    card = phase_device(torch)
     phase_build()
     k1 = phase_k1(torch, dev)
     k2 = phase_k2(torch, dev)
@@ -767,6 +1020,8 @@ def main() -> int:
             phase_mono(torch, dev)]
     reloc_launches, slam, seq = phase_reloc(torch, dev)
     runs += [reloc_launches, phase_localization(torch, dev, slam, seq)]
+    del slam
+    runs.append(phase_loop(torch, dev, card))
     launches = {name: sum(r[name] for r in runs) for name in runs[0]}
     for r in runs:
         _check(all(r.values()), f"a kernel of the main path was never launched: {r}")
@@ -780,7 +1035,7 @@ def main() -> int:
          "replaces": "orbslam2commentedbyxcm_tpu/ops/pallas_poseopt.py:300",
          "launches": launches["pose_optimization_fused"], **k2},
     ]
-    print(f"[12 total] {time.perf_counter() - t0:.1f} s")
+    print(f"[13 total] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -4,10 +4,13 @@ hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 It grows beside the JAX package `orbslam2commentedbyxcm_tpu`, which stays the
 reference, and keeps its layout:
   ops/       ORB frontend, Hamming matching, stereo matching, motion-only
-             pose optimization, Schur bundle adjustment, triangulation, and
-             the wrappers of the CUDA kernels (csrc/, built by kernels.py)
-  models/    System (synchronous stereo / RGB-D SLAM), Tracking,
-             LocalMapping, Map, Frame / KeyFrame
+             pose optimization, Schur bundle adjustment, triangulation,
+             two-view and PnP solvers, bag of words, Sim3 RANSAC and the
+             Sim3 pose graph, and the wrappers of the CUDA kernels (csrc/,
+             built by kernels.py)
+  models/    System (synchronous mono / stereo / RGB-D SLAM), Tracking,
+             LocalMapping, LoopClosing, GlobalBA, relocalization, the
+             keyframe database, Map and its checkpoints, Frame / KeyFrame
   utils/     geometry, camera, synthetic sequences, trajectory evaluation,
              JAX <-> torch conversion
   entry.py   the flagship per-frame step

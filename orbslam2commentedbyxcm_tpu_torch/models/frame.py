@@ -189,8 +189,9 @@ class KeyFrame:
         self.covis: dict[int, int] = {}     # kf_id -> shared-point weight
         self.parent: int | None = None      # spanning-tree parent kf_id
         self.children: set[int] = set()
+        self.loop_edges: set[int] = set()   # loop-closure partners (AddLoopEdge)
         self.bad = False
-        self.not_erase = False
+        self.not_erase = False              # set on loop-edge endpoints: never culled
         self.t_child_parent = None          # mTcp stored on deletion
         self._inv_sigma2 = None
         # BoW vector (word ids, values) and per-feature grouping nodes, set

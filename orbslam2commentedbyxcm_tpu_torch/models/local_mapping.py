@@ -11,16 +11,17 @@ src/LocalMapping.cc):
   SearchInNeighbors (:506)    -> projection matching into every target at once
                                  (a leading target dimension) + host merge
   Local BA (:75)              -> ops/optim.bundle_adjustment, 5 + 10 rounds
-                                 (the abort flag between them comes with the
-                                 async pipeline, whose worker can set it)
+                                 (solve_ba_problem can poll an abort flag
+                                 between phases; global BA uses it)
   KeyFrameCulling (:708)      -> 90%-redundancy rule
   initial_ba                  -> 20 LM iterations over the two-keyframe map of
                                  a monocular initialization, the first fixed
                                  (CreateInitialMapMonocular's global BA)
 
 After mapping, each keyframe goes to `loop_closer.insert_keyframe` when one is
-set (the place-recognition registrar: System._DbOnlyRegistrar); `paused`
-(localization mode) skips mapping and the hand-off alike.
+set (models/loop_closing, the lazy vocabulary trainer or the place-recognition
+registrar of models/system); `paused` (localization mode) skips mapping and
+the hand-off alike.
 
 Device work runs on the map's device; host bookkeeping stays numpy. The JAX
 package pads every array to a power-of-two size so XLA compiles each shape
@@ -483,17 +484,36 @@ LOCAL_BA_SCHEDULE = ((5, True), (10, True))  # (LM iterations, Huber) per phase
 INITIAL_BA_SCHEDULE = ((20, True),)
 
 
-def solve_ba_problem(problem, cam: Camera, device, schedule=LOCAL_BA_SCHEDULE):
-    """The BA solve of an assembled problem on `device`, the phases of
-    `schedule` in one `bundle_adjustment` call. The JAX package polls
-    its abort flag between the phases; nothing can set that flag while the
-    synchronous pipeline solves, and the relabel between phases sees the
-    same chi2 either way, so one call gives the same result."""
+def solve_ba_problem(problem, cam: Camera, device, schedule=LOCAL_BA_SCHEDULE, abort_check=None,
+                     relabel_between: bool = True):
+    """The BA solve of an assembled problem on `device`.
+
+    Without `abort_check` the phases of `schedule` run in one
+    `bundle_adjustment` call. With it, each phase is its own call and
+    `abort_check()` is polled between them; when it fires, the remaining
+    phases are skipped and the partial result returned (g2o's force-stop,
+    the reference's mbAbortBA / mbStopGBA). The next phase starts from the
+    relabeled inliers, relabeled against the full mask as in one call.
+    The synchronous local mapping has no caller that could set such a flag
+    mid-solve; global BA (models/gba) polls its stop event."""
     t = {k: torch.from_numpy(problem[k]).to(device)
          for k in ("poses", "pose_fixed", "points", "point_valid", "op", "opt", "ouv", "omask", "osig")}
-    return optim.bundle_adjustment(
-        t["poses"], t["pose_fixed"], t["points"], t["point_valid"], t["op"], t["opt"], t["ouv"],
-        t["omask"], t["osig"], cam.fx, cam.fy, cam.cx, cam.cy, cam.bf, schedule=schedule)
+    intr = (cam.fx, cam.fy, cam.cx, cam.cy, cam.bf)
+    if abort_check is None:
+        return optim.bundle_adjustment(
+            t["poses"], t["pose_fixed"], t["points"], t["point_valid"], t["op"], t["opt"], t["ouv"],
+            t["omask"], t["osig"], *intr, schedule=schedule, relabel_between=relabel_between)
+    poses, points, active, res = t["poses"], t["points"], None, None
+    for i, phase in enumerate(schedule):
+        res = optim.bundle_adjustment(
+            poses, t["pose_fixed"], points, t["point_valid"], t["op"], t["opt"], t["ouv"], t["omask"],
+            t["osig"], *intr, schedule=(phase,), relabel_between=relabel_between, active_init=active)
+        poses, points = res.poses, res.points
+        if relabel_between:
+            active = res.obs_inliers
+        if i + 1 < len(schedule) and abort_check():
+            break
+    return res
 
 
 def write_back_ba(m: Map, problem, res):

@@ -156,6 +156,10 @@ class Map:
         self.obs.pop(old_pid, None)
         self.update_point_descriptor(new_pid)
 
+    def resolve_replaced(self, pid: int) -> int:
+        """Follow one point's Replace chain to a valid point, or -1."""
+        return int(self.resolve_replaced_batch(np.array([pid]))[0])
+
     def resolve_replaced_batch(self, pids: np.ndarray) -> np.ndarray:
         """Follow Replace chains over an int array (negative entries pass
         through) until valid, or -1 when dead (CheckReplacedInLastFrame)."""

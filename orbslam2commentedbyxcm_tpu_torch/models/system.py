@@ -1,30 +1,39 @@
 """System facade: the public entry point (reference include/System.h).
 
 Counterpart of orbslam2commentedbyxcm_tpu/models/system.py for synchronous
-monocular, stereo and RGB-D SLAM: extractor -> Tracking -> LocalMapping, run
-in the caller's thread, on the torch device the System is given. Frames go in
-through `track_monocular` / `track_rgbd` / `track_stereo`, which return the
-(4, 4) float32 pose Tcw or None when the frame was not tracked.
+monocular, stereo and RGB-D SLAM: extractor -> Tracking -> LocalMapping ->
+LoopClosing, run in the caller's thread on the torch device the System is
+given, with global BA on a transient worker thread. Frames go in through
+`track_monocular` / `track_rgbd` / `track_stereo`, which return the (4, 4)
+float32 pose Tcw or None when the frame was not tracked.
 
-    system = System(camera, Sensor.MONOCULAR, enable_loop_closing=False, device="cuda")
-    t_cw = system.track_monocular(image, timestamp)
+    system = System(camera, Sensor.RGBD, vocabulary="bootstrap", device="cuda")
+    t_cw = system.track_rgbd(image, depth, timestamp)
 
-With `vocabulary` ("bootstrap" or an ops/bow Vocabulary) keyframes are
+With a vocabulary ("bootstrap" or an ops/bow Vocabulary) keyframes are
 registered in a BoW keyframe database, the reference-keyframe stage tries a
-BoW search first, and a lost tracker relocalizes (models/relocalization).
-`activate_localization_mode` freezes the map and tracks with the
-visual-odometry fallback. `vocabulary=None` means no place recognition: the
-JAX package instead trains a small vocabulary from the map once it holds 5
-keyframes, which is not ported (ROADMAP.md Queue 3).
+BoW search first, a lost tracker relocalizes (models/relocalization) and,
+with `enable_loop_closing`, loops are detected and closed
+(models/loop_closing; the Sim3 is fixed-scale except for monocular). With
+`vocabulary=None` and loop closing on, a small vocabulary is trained from
+the map's own descriptors once it holds 5 keyframes (`_LazyVocabTrainer`),
+then the same stack is wired. With neither, there is no place recognition
+(the JAX package trains the vocabulary then too, for relocalization alone:
+ROADMAP.md Queue 3). `map_lock` (Map::mMutexMapUpdate) is held around
+tracking and by global BA's write-back. `save_map` / `load_map` checkpoint
+the map in the JAX package's npz format; a loaded System comes up LOST and
+relocalizes. `activate_localization_mode` freezes the map and tracks with
+the visual-odometry fallback.
 
 Options that belong to later slices raise NotImplementedError naming their
-ROADMAP.md Queue 1 item: loop closing, the async pipeline, the tracer, the
-multi-device mesh and map save/load.
+ROADMAP.md Queue 1 item: the async pipeline, the tracer and the multi-device
+mesh.
 """
 
 from __future__ import annotations
 
 import enum
+import threading
 
 import numpy as np
 import torch
@@ -32,7 +41,10 @@ import torch
 from orbslam2commentedbyxcm_tpu_torch.models.frame import Frame, rgbd_observations
 from orbslam2commentedbyxcm_tpu_torch.models.keyframe_database import KeyFrameDatabase
 from orbslam2commentedbyxcm_tpu_torch.models.local_mapping import LocalMapping
+from orbslam2commentedbyxcm_tpu_torch.models.loop_closing import LoopClosing
 from orbslam2commentedbyxcm_tpu_torch.models.map import Map
+from orbslam2commentedbyxcm_tpu_torch.models.map_io import load_map as _load_map
+from orbslam2commentedbyxcm_tpu_torch.models.map_io import save_map as _save_map
 from orbslam2commentedbyxcm_tpu_torch.models.relocalization import Relocalizer
 from orbslam2commentedbyxcm_tpu_torch.models.tracking import Tracking, TrackingConfig, TrackingState
 from orbslam2commentedbyxcm_tpu_torch.ops import bow
@@ -50,6 +62,21 @@ class Sensor(enum.Enum):
 
 def _not_ported(what: str, item: int):
     raise NotImplementedError(f"{what} is not ported to the PyTorch package yet (ROADMAP.md Queue 1 item {item})")
+
+
+class _LazyVocabTrainer:
+    """The mapper's loop_closer hand-off until a vocabulary exists: once the
+    map holds 5 good keyframes it trains one from their descriptors and
+    passes the keyframe on to the place-recognition stack it wired."""
+
+    def __init__(self, system):
+        self.system = system
+
+    def insert_keyframe(self, kf_id: int):
+        sys_ = self.system
+        if len(sys_.map.good_keyframes()) >= 5:
+            if sys_.train_vocabulary_from_map() and sys_.local_mapping.loop_closer is not self:
+                sys_.local_mapping.loop_closer.insert_keyframe(kf_id)
 
 
 class _DbOnlyRegistrar:
@@ -86,8 +113,6 @@ class System:
         init_feature_boost: float = 2.0,  # monocular initialization only
         device="cuda",
     ):
-        if enable_loop_closing:
-            _not_ported("loop closing (pass enable_loop_closing=False)", 9)
         if async_mapping:
             _not_ported("the async mapping pipeline", 10)
         if tracer is not None:
@@ -123,6 +148,9 @@ class System:
                 normalize_exposure=self.cfg.normalize_exposure,
                 exposure_target_mad=self.cfg.exposure_target_mad,
             )
+        # Map::mMutexMapUpdate: held around tracking (which runs mapping and
+        # loop closing synchronously) and by global BA's write-back
+        self.map_lock = threading.Lock()
         self.local_mapping = LocalMapping(self.map, camera)
         self.tracking = Tracking(camera, self.map, self.local_mapping, self.cfg,
                                  std_capacity=self.extractor.capacity)
@@ -130,21 +158,54 @@ class System:
             vocabulary = bow.bootstrap_vocabulary()
         self.vocabulary = vocabulary
         self.keyframe_db = None
+        self.loop_closing = None
+        self._enable_loop_closing = enable_loop_closing
         if vocabulary is not None:
             self._wire_place_recognition()
+        elif enable_loop_closing:
+            self.local_mapping.loop_closer = _LazyVocabTrainer(self)
 
     def _wire_place_recognition(self):
         """Keyframe database (erased keyframes leave it through the map's
-        erase hook), the registrar as the mapper's loop_closer hand-off, the
-        relocalizer, and the tracker's vocabulary. The tree is uploaded to
-        the System's device here, once."""
+        erase hook), the loop closer (or, with loop closing off, the
+        registrar) as the mapper's hand-off, the relocalizer, and the
+        tracker's vocabulary. The tree is uploaded to the System's device
+        here, once. Re-wiring (lazy training, load_map) stops the replaced
+        stack's global BA first: a stale solve must not write back later."""
+        if self.loop_closing is not None:
+            self.loop_closing.gba.abort()
         self.vocabulary.device_tree(self.device)
         self.keyframe_db = KeyFrameDatabase(self.vocabulary)
         self.map.erase_hooks.append(self.keyframe_db.erase)
-        self.local_mapping.loop_closer = _DbOnlyRegistrar(self)
+        if self._enable_loop_closing:
+            self.loop_closing = LoopClosing(self.map, self.camera, keyframe_db=self.keyframe_db,
+                                            vocabulary=self.vocabulary, fix_scale=self.sensor != Sensor.MONOCULAR,
+                                            map_lock=self.map_lock, device=self.device)
+            self.local_mapping.loop_closer = self.loop_closing
+        else:
+            self.local_mapping.loop_closer = _DbOnlyRegistrar(self)
         self.local_mapping.relocalizer = Relocalizer(self.map, self.camera, keyframe_db=self.keyframe_db,
                                                      vocabulary=self.vocabulary)
         self.tracking.vocabulary = self.vocabulary
+
+    def _register_keyframes(self):
+        """BoW vectors of every good keyframe into the database, id order."""
+        for kf in sorted(self.map.good_keyframes(), key=lambda k: k.kf_id):
+            words, groups, weights = bow.transform(self.vocabulary, kf.desc, kf.valid, device=self.device)
+            kf.bow_vec = bow.bow_vector(words, weights, self.vocabulary.n_words)
+            kf.bow_feat_nodes = groups
+            self.keyframe_db.add(kf.kf_id, *kf.bow_vec)
+
+    def train_vocabulary_from_map(self, k: int = 8, depth: int = 3) -> bool:
+        """Train a vocabulary on the good keyframes' descriptors (at least
+        500), wire place recognition and register the keyframes."""
+        descs = [kf.desc[kf.valid] for kf in self.map.good_keyframes()]
+        if not descs or sum(len(d) for d in descs) < 500:
+            return False
+        self.vocabulary = bow.train_vocabulary(np.concatenate(descs), k=k, depth=depth, device=self.device)
+        self._wire_place_recognition()
+        self._register_keyframes()
+        return True
 
     # -- frame entry points ------------------------------------------------
 
@@ -169,7 +230,8 @@ class System:
         return frame
 
     def _track_locked(self, frame: Frame):
-        state = self.tracking.track_frame(frame)
+        with self.map_lock:
+            state = self.tracking.track_frame(frame)
         # lost right after initialization: the young map is too small to
         # recover from, so reset (reference src/Tracking.cc:518-525)
         if (state == TrackingState.LOST and not self.tracking.localization_only
@@ -218,37 +280,59 @@ class System:
 
     # -- control -----------------------------------------------------------
 
+    def _gba(self):
+        return None if self.loop_closing is None else self.loop_closing.gba
+
+    def _drain_mapping(self):
+        """Wait for a running global BA (and raise what it raised)."""
+        if self._gba() is not None:
+            self._gba().wait()
+
     def reset(self):
+        if self._gba() is not None:
+            self._gba().abort()
+        self._drain_mapping()
         # materialize the tracked-so-far trajectories into absolute poses
         # before the map (and its reference keyframes) is dropped
         self._archived_trajectory = self.frame_trajectory()
         self._archived_kf_trajectory = self.keyframe_trajectory()
-        self.map = Map(device=self.device)
-        self.local_mapping.map = self.map
-        self.local_mapping.recent_points = []
-        t = self.tracking
-        t.map = self.map
-        t.state = TrackingState.NOT_INITIALIZED
-        t.last_frame = None
-        t.velocity = None
-        t.trajectory = []
-        t.init_ref_frame = None
-        t.vo_mode = False
-        t._prev_local_pids = None  # stale pids index the old map
-        t._pack_cache.clear()  # the new map's pt_version restarts from 0
+        self._install_map(Map(device=self.device), [])
+        self.tracking.state = TrackingState.NOT_INITIALIZED
         if self.keyframe_db is not None:
             self.keyframe_db.clear()
             self.map.erase_hooks.append(self.keyframe_db.erase)
-            self.local_mapping.relocalizer.map = self.map
+
+    def _install_map(self, m: Map, trajectory):
+        """Point every consumer at map `m` and drop the tracker's per-map state."""
+        self.map = m
+        self.local_mapping.map = m
+        self.local_mapping.recent_points = []
+        t = self.tracking
+        t.map = m
+        t.last_frame = None
+        t.velocity = None
+        t.trajectory = trajectory
+        t.init_ref_frame = None
+        t.vo_mode = False
+        t._prev_local_pids = None  # stale pids index the old map
+        t._pack_cache.clear()  # a new map's pt_version restarts
+        if self.local_mapping.relocalizer is not None:
+            self.local_mapping.relocalizer.map = m
+        if self.loop_closing is not None:
+            self.loop_closing.map = m
+            self.loop_closing.gba.map = m
 
     def shutdown(self):
-        """A no-op: the synchronous pipeline has no worker to join."""
+        """Wait for a running global BA; the synchronous pipeline has no
+        other worker to join."""
+        self._drain_mapping()
 
     def activate_localization_mode(self):
         """Track against the frozen map: no keyframes, no mapping (reference
         System::ActivateLocalizationMode, src/System.cc:147-172)."""
         self.tracking.localization_only = True
         self.local_mapping.paused = True
+        self._drain_mapping()
 
     def deactivate_localization_mode(self):
         self.tracking.localization_only = False
@@ -264,13 +348,31 @@ class System:
         self.local_mapping.camera = camera
         if self.local_mapping.relocalizer is not None:
             self.local_mapping.relocalizer.camera = camera
+        if self.loop_closing is not None:
+            self.loop_closing.camera = camera
+            self.loop_closing.gba.camera = camera
         self.tracking.velocity = None
 
     def save_map(self, path: str):
-        _not_ported("map save/load", 9)
+        """Checkpoint the map, the frame trajectory and the vocabulary (npz,
+        the JAX package's keys) after any running global BA."""
+        self._drain_mapping()
+        _save_map(self.map, path, vocabulary=self.vocabulary, trajectory=self.tracking.trajectory)
 
     def load_map(self, path: str):
-        _not_ported("map save/load", 9)
+        """Replace the map with a checkpoint; the System comes up LOST and
+        relocalizes against it on the next frame."""
+        if self._gba() is not None:
+            self._gba().abort()
+        self._drain_mapping()
+        m, voc, traj = _load_map(path, self.cfg.scale_factor, self.cfg.n_levels, self.camera, device=self.device)
+        self._install_map(m, traj)
+        self.tracking.state = TrackingState.LOST
+        if voc is not None:
+            self.vocabulary = voc
+        if self.vocabulary is not None:
+            self._wire_place_recognition()
+            self._register_keyframes()
 
     # -- introspection ------------------------------------------------------
 
@@ -302,9 +404,11 @@ class System:
         return list(self._archived_kf_trajectory) + [(kf.timestamp, kf.t_cw.copy()) for kf in kfs]
 
     def frame_trajectory(self):
-        """[(timestamp, Tcw)] through the (BA-corrected) reference keyframe
-        poses; erased keyframes are traversed via their stored pose relative
-        to their spanning-tree parent (reference SaveTrajectoryTUM)."""
+        """[(timestamp, Tcw)] through the (BA- and loop-corrected) reference
+        keyframe poses, after any running global BA; erased keyframes are
+        traversed via their stored pose relative to their spanning-tree
+        parent (reference SaveTrajectoryTUM)."""
+        self._drain_mapping()
         out = list(self._archived_trajectory)
         for ts, ref_id, t_rel in self.tracking.trajectory:
             kf = self.map.keyframes.get(ref_id)

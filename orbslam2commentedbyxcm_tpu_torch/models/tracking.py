@@ -273,7 +273,14 @@ class Tracking:
         if self.state == TrackingState.OK:
             ref = self.map.keyframes.get(self.ref_kf_id)
             if ref is not None:
-                t_rel = frame.t_cw @ np.linalg.inv(ref.t_cw)
+                # a frame that became a keyframe is its own reference (Tcr = I
+                # in the reference, recorded before LocalMapping runs): here
+                # the synchronous local BA and loop correction have already
+                # moved the keyframe, and frame.t_cw is the pose from before
+                if ref.frame_id == frame.id:
+                    t_rel = np.eye(4, dtype=np.float32)
+                else:
+                    t_rel = frame.t_cw @ np.linalg.inv(ref.t_cw)
                 self.trajectory.append((frame.timestamp, self.ref_kf_id, t_rel))
         return self.state
 

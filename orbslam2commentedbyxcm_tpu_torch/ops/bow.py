@@ -1,16 +1,16 @@
 """Binary bag of words on torch tensors: the vocabulary tree, its batched
 descent and the BoW vectors and scores (DBoW2, Thirdparty/DBoW2).
 
-Counterpart of `Vocabulary`, `transform`, `bootstrap_vocabulary`,
-`bow_vector`, `l1_score` and `score` in orbslam2commentedbyxcm_tpu/ops/bow.py.
-The tree is packed arrays (per-node descriptors, children), uploaded once per
-device; `transform` descends it for all descriptors at once, one gather of
-the k children plus XOR and a SWAR popcount per level (TemplatedVocabulary
-transform, levelsup 4), on the device of the tree. Word and grouping-node ids
-are bit-equal to the JAX package's for the same descriptors.
-
-Vocabulary training (the JAX package's `train_vocabulary`) is not ported:
-`bootstrap_vocabulary` loads the tree the JAX package ships, by path.
+Counterpart of `Vocabulary`, `train_vocabulary`, `transform`,
+`bootstrap_vocabulary`, `bow_vector`, `l1_score` and `score` in
+orbslam2commentedbyxcm_tpu/ops/bow.py. The tree is packed arrays (per-node
+descriptors, children), uploaded once per device; `transform` descends it for
+all descriptors at once, one gather of the k children plus XOR and a SWAR
+popcount per level (TemplatedVocabulary transform, levelsup 4), on the device
+of the tree. Word and grouping-node ids are bit-equal to the JAX package's for
+the same descriptors. `bootstrap_vocabulary` loads the tree the JAX package
+ships, by path; `train_vocabulary` (hierarchical binary k-means) gives the
+JAX package's tree bit for bit from the same descriptors and seed.
 """
 
 from __future__ import annotations
@@ -75,6 +75,100 @@ def bootstrap_vocabulary(path: str = BOOTSTRAP_PATH) -> Vocabulary:
     """The vocabulary the JAX package ships (assets/bootstrap_vocab.npz,
     trained offline on this engine's own descriptors; k = 10, depth 6)."""
     return Vocabulary.load(path)
+
+
+def _pack_bits(maj: torch.Tensor) -> torch.Tensor:
+    """(k, 256) {0, 1} bits -> (k, 8) int32 words with the same bits (bit b
+    of word w is element 32 w + b, as ops/matching.unpack_bits)."""
+    shifts = torch.arange(32, device=maj.device)
+    words = torch.sum(maj.long().reshape(-1, 8, 32) << shifts, dim=-1)
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).int()
+
+
+_KMEANS_CHUNK = 1 << 16
+
+
+def _kmeans(desc: torch.Tensor, centroids: torch.Tensor, k: int, iters: int):
+    """Binary k-means (FORB::meanValue): Hamming assignment, then each
+    centroid becomes the bit majority of its members (the sum of bits over
+    the count compared with 0.5, exact in float32 below 2^24 members); an
+    empty cluster keeps its centroid. Descriptors (N, 8) int32 are processed
+    in chunks of 2^16 rows, so memory stays O(chunk x 256) for the root nodes
+    of large corpora. Returns (centroids (k, 8) int32, assignment (N,))."""
+    from orbslam2commentedbyxcm_tpu_torch.ops.matching import hamming_matrix, unpack_bits
+
+    chunks = torch.split(desc, _KMEANS_CHUNK)
+    for _ in range(iters):
+        cnt = torch.zeros(k, device=desc.device)
+        bitsum = torch.zeros((k, 256), device=desc.device)
+        for d_c in chunks:
+            assign = torch.argmin(hamming_matrix(d_c, centroids), dim=1)
+            cnt.index_add_(0, assign, torch.ones(len(d_c), device=desc.device))
+            bitsum.index_add_(0, assign, unpack_bits(d_c))
+        packed = _pack_bits(bitsum / torch.clamp(cnt, min=1.0)[:, None] > 0.5)
+        centroids = torch.where((cnt < 0.5)[:, None], centroids, packed)
+    assign = torch.cat([torch.argmin(hamming_matrix(d_c, centroids), dim=1) for d_c in chunks])
+    return centroids, assign
+
+
+def train_vocabulary(descriptors: np.ndarray, k: int = 10, depth: int = 4, seed: int = 0,
+                     kmeans_iters: int = 8, max_train: int = 200_000, *, device) -> Vocabulary:
+    """Hierarchical binary k-means over (N, 8) uint32 descriptors
+    (TemplatedVocabulary::create): each node's descriptors split into k
+    clusters, depth levels deep, the k-means on `device` (the descriptors
+    are numpy, so the caller names the device). Initial centroids
+    and the subsample above `max_train` come from numpy's default_rng(seed)
+    in the JAX package's order, so the tree is the same. Word weights are
+    idf over the training corpus, one document per descriptor."""
+    rng = np.random.default_rng(seed)
+    descriptors = np.asarray(descriptors, np.uint32)
+    if len(descriptors) > max_train:
+        descriptors = descriptors[rng.choice(len(descriptors), max_train, replace=False)]
+    desc_dev = torch.from_numpy(descriptors.view(np.int32)).to(device)
+
+    node_desc = [np.zeros(8, np.uint32)]
+    node_children: list[list[int]] = [[]]
+    node_parent = [-1]
+    node_level = [0]
+    stack = [(0, 0, torch.arange(len(descriptors), device=desc_dev.device))]  # (node, level, rows)
+    while stack:
+        nid, lvl, rows = stack.pop()
+        if lvl >= depth or len(rows) < k:
+            continue
+        init = torch.from_numpy(rng.choice(len(rows), k, replace=False)).to(rows.device)
+        subset = desc_dev[rows]
+        cent, assign = _kmeans(subset, subset[init], k, kmeans_iters)
+        cent_np = cent.cpu().numpy().view(np.uint32)
+        for c in range(k):
+            sel = rows[assign == c]
+            if len(sel) == 0:
+                continue
+            child_id = len(node_desc)
+            node_desc.append(cent_np[c])
+            node_children.append([])
+            node_parent.append(nid)
+            node_level.append(lvl + 1)
+            node_children[nid].append(child_id)
+            stack.append((child_id, lvl + 1, sel))
+
+    n_nodes = len(node_desc)
+    children_arr = np.full((n_nodes, k), -1, np.int32)
+    for nid, ch in enumerate(node_children):
+        children_arr[nid, : len(ch)] = ch
+    leaves = np.nonzero([len(c) == 0 for c in node_children])[0].astype(np.int32)
+    word_id = np.full(n_nodes, -1, np.int32)
+    word_id[leaves] = np.arange(len(leaves), dtype=np.int32)
+    voc = Vocabulary(
+        k=k, depth=depth, node_desc=np.stack(node_desc).reshape(n_nodes, 8).astype(np.uint32),
+        node_children=children_arr, node_parent=np.asarray(node_parent, np.int32),
+        node_level=np.asarray(node_level, np.int32), word_id=word_id,
+        word_weight=np.ones(len(leaves), np.float32), word_node=leaves,
+    )
+    words, _, _ = transform(voc, desc_dev, np.ones(len(descriptors), bool))
+    counts = np.bincount(words, minlength=voc.n_words).astype(np.float64)
+    idf = np.log(len(descriptors) / np.maximum(counts, 1.0))
+    voc.word_weight = np.maximum(idf, 1e-3).astype(np.float32)
+    return voc
 
 
 def popcount32(x: torch.Tensor) -> torch.Tensor:

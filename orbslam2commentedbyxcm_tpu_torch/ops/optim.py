@@ -224,6 +224,7 @@ def bundle_adjustment(
     inv_sigma2: torch.Tensor,   # (E,) float32
     fx, fy, cx, cy, bf,
     schedule=((5, True), (10, True)),
+    relabel_between: bool = True,
     active_init: torch.Tensor | None = None,
 ) -> BAResult:
     """Schur-complement LM over masked edges: per-landmark 3x3 blocks are
@@ -231,8 +232,9 @@ def bundle_adjustment(
     S = Hcc - W Hpp^-1 W^T is solved for the free poses (fixed poses get
     identity rows), and the landmarks are back-substituted.
 
-    `schedule` lists phases (iterations, Huber on); between phases the
-    edges are relabeled by chi2 against the full obs_mask. `active_init`
+    `schedule` lists phases (iterations, Huber on); with `relabel_between`
+    the edges are relabeled by chi2 against the full obs_mask between
+    phases (global BA's plain schedule keeps every edge). `active_init`
     (default obs_mask) is the first phase's active set, so an edge excluded
     there can come back at a later relabel."""
     k_poses, p_pts = poses.shape[0], points.shape[0]
@@ -316,7 +318,8 @@ def bundle_adjustment(
             poses, points, lam, err, done = lm_step(poses, points, lam, err, active, use_huber)
             if bool(done):  # early exit, as the JAX package's while-loop
                 break
-        inl = obs_mask & (edge_terms(poses, points, active, use_huber)[4] <= delta2)
+        if relabel_between:
+            inl = obs_mask & (edge_terms(poses, points, active, use_huber)[4] <= delta2)
 
     c2 = edge_terms(poses, points, (inl & point_valid[opt]).float(), False)[4]
     inl = obs_mask & (c2 <= delta2)

@@ -266,15 +266,15 @@ def _decompose_h(h: torch.Tensor):
 
 
 def draw_samples(mask: torch.Tensor, n_hypotheses: int, size: int, generator: torch.Generator | None):
-    """(n_hypotheses, size) indices drawn with replacement, uniformly over the
-    masked rows (the draw of jax.random.choice(..., p=mask / sum) in the JAX
-    package, from a torch generator). With no masked row every index is
-    drawn uniformly; such a draw never succeeds."""
+    """(..., n_hypotheses, size) indices drawn with replacement, uniformly
+    over the masked rows of each (N,) mask in (..., N) (the draw of
+    jax.random.choice(..., p=mask / sum) in the JAX package, from a torch
+    generator). With no masked row every index is drawn uniformly; such a
+    draw never succeeds."""
     w = mask.float()
-    if not bool(w.any()):
-        w = torch.ones_like(w)
-    return torch.multinomial(w, n_hypotheses * size, replacement=True,
-                             generator=generator).view(n_hypotheses, size)
+    w = torch.where(w.any(dim=-1, keepdim=True), w, torch.ones_like(w))
+    idx = torch.multinomial(w.reshape(-1, w.shape[-1]), n_hypotheses * size, replacement=True, generator=generator)
+    return idx.view(*mask.shape[:-1], n_hypotheses, size)
 
 
 def initialize_two_view(

@@ -70,7 +70,7 @@ def camera_from_jax(cam) -> Camera:
 def map_from_jax(jmap, device="cpu") -> Map:
     """A port Map holding a copy of the JAX Map `jmap`'s state: point arrays
     and counters, observations, keyframes with their features, poses,
-    map-point links, covisibility and spanning tree. Nothing is shared, so
+    map-point links, covisibility, spanning tree and loop edges. Nothing is shared, so
     both packages can go on from the same map state."""
     m = Map(point_capacity=len(jmap.pt_valid), device=device)
     for name in _POINT_ARRAYS:
@@ -88,6 +88,7 @@ def map_from_jax(jmap, device="cpu") -> Map:
             setattr(kf, name, np.array(getattr(jkf, name), copy=True))
         kf.covis = dict(jkf.covis)
         kf.children = set(jkf.children)
+        kf.loop_edges = set(jkf.loop_edges)
         kf.t_child_parent = None if jkf.t_child_parent is None else np.array(jkf.t_child_parent)
         kf._inv_sigma2 = None
         kf.bow_vec = None if jkf.bow_vec is None else tuple(np.array(a) for a in jkf.bow_vec)

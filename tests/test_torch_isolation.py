@@ -1,6 +1,7 @@
 """The port never imports JAX: every module of the package, one CPU tracking
 step, three RGB-D frames through the System, the shipped vocabulary and three
-monocular frames with place recognition, in a fresh interpreter."""
+monocular frames with place recognition, a loop-closing RGB-D System and a
+small trained vocabulary, in a fresh interpreter."""
 
 import os
 import subprocess
@@ -42,6 +43,14 @@ mono = System(cam, Sensor.MONOCULAR, config=TrackingConfig(n_features=300), enab
 mseq = SyntheticSequence(camera=cam, n_frames=30, trajectory="sideways", tex_size=256)
 states = [(mono.track_monocular(mseq.render(i), i / 30.0), mono.get_tracking_state()) for i in range(3)]
 assert states[-1][1].name in ("OK", "NOT_INITIALIZED"), states
+loop = System(cam, Sensor.RGBD, config=TrackingConfig(n_features=300), device="cpu", vocabulary=voc)
+poses = [loop.track_rgbd(seq.render(i), seq.depth_map(i), i / 30.0) for i in range(2)]
+assert all(p is not None for p in poses) and loop.local_mapping.loop_closer is loop.loop_closing
+loop.shutdown()
+import numpy as np
+small = bow.train_vocabulary(np.random.default_rng(0).integers(0, 2**32, (600, 8), dtype=np.uint32), k=4, depth=2,
+                             device="cpu")
+assert small.n_words > 4
 bad = sorted(m for m in sys.modules if m in ("jax", "orbslam2commentedbyxcm_tpu")
              or m.startswith(("jax.", "jaxlib", "orbslam2commentedbyxcm_tpu.")))
 print("JAX-MODULES:", bad)

@@ -89,22 +89,37 @@ def test_system_matches_jax(sensor, tmp_path):
     assert file_ate <= 1.5 * j_ate + 0.01
 
 
-def test_unported_options_raise():
-    """Loop closing, the async pipeline, the tracer, the mesh and map
-    save/load raise, naming their ROADMAP.md item; monocular SLAM, a
-    vocabulary and localization mode are ported and construct."""
+def test_unported_options_raise(tmp_path):
+    """The async pipeline, the tracer and the mesh raise, naming their
+    ROADMAP.md item; loop closing (with the shipped vocabulary or the lazy
+    trainer), map save / load, monocular SLAM, a vocabulary and
+    localization mode are ported: they construct and run."""
     cam = convert.camera_from_jax(CAM)
-    for kw, item in ((dict(sensor=tsystem.Sensor.RGBD), 9),
-                     (dict(sensor=tsystem.Sensor.MONOCULAR, vocabulary="bootstrap"), 9),
-                     (dict(sensor=tsystem.Sensor.RGBD, enable_loop_closing=False, async_mapping=True), 10),
-                     (dict(sensor=tsystem.Sensor.RGBD, enable_loop_closing=False, tracer=object()), 10),
-                     (dict(sensor=tsystem.Sensor.RGBD, enable_loop_closing=False, mesh=object()), 11)):
+    for kw, item in ((dict(sensor=tsystem.Sensor.RGBD, async_mapping=True), 10),
+                     (dict(sensor=tsystem.Sensor.RGBD, tracer=object()), 10),
+                     (dict(sensor=tsystem.Sensor.RGBD, mesh=object()), 11)):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 item {item}"):
             tsystem.System(cam, device="cpu", **kw)
-    s = tsystem.System(cam, tsystem.Sensor.RGBD, enable_loop_closing=False, device="cpu")
-    for call in (lambda: s.save_map("x"), lambda: s.load_map("x")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
-            call()
+    lazy = tsystem.System(cam, tsystem.Sensor.RGBD, device="cpu")  # the JAX package's defaults
+    assert lazy.vocabulary is None and type(lazy.local_mapping.loop_closer).__name__ == "_LazyVocabTrainer"
+    loop = tsystem.System(cam, tsystem.Sensor.MONOCULAR, vocabulary="bootstrap", device="cpu")
+    assert loop.local_mapping.loop_closer is loop.loop_closing and not loop.loop_closing.fix_scale
+    assert loop.loop_closing.gba.lock is loop.map_lock
+    seq = JBoxSequence(camera=CAM, seed=5, n_frames=100, turns=0.35)
+    s = tsystem.System(cam, tsystem.Sensor.RGBD, config=TConfig(**CFG), vocabulary="bootstrap", device="cpu")
+    assert s.loop_closing.fix_scale
+    for i in range(8):
+        assert s.track_rgbd(seq.render(i), seq.depth_map(i), i / 30.0) is not None
+    # every keyframe after the initial one went through the loop closer
+    assert len(s.keyframe_db) == len(s.map.good_keyframes()) - 1 >= 1
+    path = str(tmp_path / "map.npz")
+    s.save_map(path)
+    s2 = tsystem.System(cam, tsystem.Sensor.RGBD, config=TConfig(**CFG), enable_loop_closing=False, device="cpu")
+    s2.load_map(path)
+    assert s2.get_tracking_state() == tsystem.TrackingState.LOST and s2.vocabulary is not None
+    assert s2.map.n_valid_points() == s.map.n_valid_points()
+    assert len(s2.keyframe_db) == len(s2.map.good_keyframes()) == len(s.map.good_keyframes())
+    assert s2.track_rgbd(seq.render(4), seq.depth_map(4), 1.0) is not None  # relocalized
     with pytest.raises(ValueError):
         s.track_stereo(np.zeros((240, 320)), np.zeros((240, 320)), 0.0)
     with pytest.raises(ValueError):
@@ -112,10 +127,11 @@ def test_unported_options_raise():
     s.activate_localization_mode()
     assert s.tracking.localization_only and s.local_mapping.paused
     s.deactivate_localization_mode()
+    s.shutdown()
     mono = tsystem.System(cam, tsystem.Sensor.MONOCULAR, enable_loop_closing=False, device="cpu",
                           vocabulary="bootstrap")
     assert mono.keyframe_db is not None and mono.local_mapping.relocalizer is not None
-    assert mono.tracking.vocabulary is mono.vocabulary
+    assert mono.tracking.vocabulary is mono.vocabulary and mono.loop_closing is None
     if not torch.cuda.is_available():  # no quiet fallback to the CPU
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tsystem.System(cam, tsystem.Sensor.MONOCULAR, enable_loop_closing=False, device="cuda")
@@ -174,3 +190,33 @@ def test_fused_local_pack_resolves_replaced_points(tracked_two_frames):
     assert not set(local[:20].tolist()) & set(local_pack.tolist())
     assert set(local[20:40].tolist()) <= set(local_pack.tolist())
     assert m.pt_valid[frame.map_pt[frame.map_pt >= 0]].all()
+
+
+def test_keyframe_frame_is_its_own_reference():
+    """Divergence from the JAX package (tracking.py:299-303, ROADMAP Queue 3):
+    there a frame that becomes a keyframe records its pose relative to the
+    keyframe after the synchronous local BA (and any loop correction) has
+    moved the keyframe, so the saved trajectory keeps that frame where
+    tracking put it, off the corrected keyframe. The port records the frame
+    as its own keyframe (Tcr = I, as the reference does before LocalMapping
+    runs): its frame-trajectory pose is the keyframe's."""
+    seq = JBoxSequence(camera=CAM, seed=5, n_frames=100, turns=0.35)
+    tsys = tsystem.System(convert.camera_from_jax(CAM), tsystem.Sensor.RGBD, config=TConfig(**CFG),
+                          enable_loop_closing=False, device="cpu")
+    jsys = jsystem.System(CAM, jsystem.Sensor.RGBD, config=JConfig(**CFG), enable_loop_closing=False)
+    jsys.local_mapping.loop_closer = None
+    for i in range(8):
+        for s in (tsys, jsys):
+            assert s.track_rgbd(seq.render(i), seq.depth_map(i), i / 30.0) is not None
+    for s in (tsys, jsys):
+        kfs = {kf.timestamp: kf for kf in s.map.good_keyframes() if kf.timestamp > 0}
+        own = [(ts, rel) for ts, ref, rel in s.tracking.trajectory if ts in kfs and kfs[ts].kf_id == ref]
+        assert own  # a keyframe after the first, moved by local BA
+        off = max(np.abs(rel - np.eye(4)).max() for _, rel in own)
+        if s is tsys:
+            assert off == 0.0
+            poses = dict(s.frame_trajectory())
+            for ts, _ in own:
+                np.testing.assert_array_equal(poses[ts], kfs[ts].t_cw)
+        else:
+            assert off > 1e-6

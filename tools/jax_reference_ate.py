@@ -1,15 +1,34 @@
 """The JAX package's ATE on the CPU over chip_smoke.py's SLAM runs: the
-references behind chip_smoke's JAX_ATE_RGBD, JAX_ATE_STEREO and JAX_ATE_MONO
-(each port bound is 1.5 x that + 1 cm).
+references behind chip_smoke's JAX_ATE_RGBD, JAX_ATE_STEREO, JAX_ATE_MONO and
+JAX_ATE_LOOP (each port bound is 1.5 x that + 1 cm).
 
     python3 tools/jax_reference_ate.py mono      # ~75 s on 2 CPU threads
     python3 tools/jax_reference_ate.py rgbd stereo
+    python3 tools/jax_reference_ate.py loop      # several minutes per frame count
 
-Runs the JAX System (no loop closing, no lazy vocabulary trainer) at 640x480
-with default_camera(640, 480), 1000 features and chip_smoke's keyframe
-policy: RGB-D over BoxSequence seed 5 frames 0-59 (SE3 alignment), stereo over
-rounded pairs 0-29 (SE3), mono over SyntheticSequence("sideways") frames 0-59
-(Sim3). Needs the JAX package; the port is not imported.
+Runs the JAX System at 640x480 with default_camera(640, 480) and 1000
+features. rgbd / stereo / mono use chip_smoke's keyframe policy and no loop
+closing (no lazy vocabulary trainer): RGB-D over BoxSequence seed 5 frames
+0-59 (SE3 alignment), stereo over rounded pairs 0-29 (SE3), mono over
+SyntheticSequence("sideways") frames 0-59 (Sim3).
+
+loop is chip_smoke's phase 12: System(RGBD, vocabulary="bootstrap",
+enable_loop_closing=True) over a BoxSequence orbit (seed 0, turns 1.3) with
+TrackingConfig(max_frames_between_kf=4, kf_tracked_ratio=0.95,
+motion_search_radius=20.0). The orbit is spread over the run's frame count,
+so each count is its own trajectory: starting at 130 it adds 10 frames until
+the System closes a loop, then prints that count, the frame of the loop, the
+ATE of the loop-corrected frame trajectory (after global BA) and the ATE of
+the same frames tracked with loop closing off (SE3 alignment both). For each
+run it also splits the ATE into frames 0 to the loop frame and the frames
+after (each aligned on its own), and gives the drift at the loop: the error of
+the relative pose between the two frames the first loop edge joins. Each
+figure is given twice: on the JAX package's frame trajectory as it records
+it, and with every keyframe frame recorded as its own keyframe's pose, as the
+port records it (the JAX package records the frame's pose from before the
+synchronous local BA and loop correction against the keyframe moved by
+them). `loop N` runs one count only. Needs the JAX package; the port is not
+imported.
 """
 
 import os
@@ -28,6 +47,7 @@ from orbslam2commentedbyxcm_tpu.utils.evaluation import ate_rmse, positions_from
 from orbslam2commentedbyxcm_tpu.utils.synth import BoxSequence, SyntheticSequence, default_camera  # noqa: E402
 
 RUNS = {"rgbd": 60, "stereo": 30, "mono": 60}
+LOOP_FIRST, LOOP_STEP, LOOP_LAST = 130, 10, 200
 
 
 def run(which: str):
@@ -59,6 +79,92 @@ def run(which: str):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
+LOOP_CONFIG = dict(max_frames_between_kf=4, kf_tracked_ratio=0.95, motion_search_radius=20.0)
+
+
+def loop_run(n: int, loop_closing: bool):
+    """One pass of phase 12's run over an n-frame orbit -> (System, frames
+    tracked, frame of the first closed loop or None, frame trajectory as
+    {frame index: Tcw}, ground truth)."""
+    cam = default_camera(640, 480)
+    seq = BoxSequence(camera=cam, n_frames=n, turns=1.3)
+    s = jsystem.System(cam, jsystem.Sensor.RGBD, config=TrackingConfig(**LOOP_CONFIG), vocabulary="bootstrap",
+                       enable_loop_closing=loop_closing)
+    tracked, loop_frame = 0, None
+    for i in range(n):
+        tracked += s.track_rgbd(seq.render(i), seq.depth_map(i), i / 30.0) is not None
+        if loop_frame is None and s.loop_closing is not None and s.loop_closing.n_loops_closed:
+            loop_frame = i
+    traj = {int(round(ts * 30)): t for ts, t in s.frame_trajectory()}  # waits for a running global BA
+    return s, tracked, loop_frame, traj, repaired_trajectory(s), seq
+
+
+def repaired_trajectory(s):
+    """{frame index: Tcw} with each keyframe frame at its keyframe's pose
+    (relative pose I to its reference keyframe, as the port records it)."""
+    recorded = s.tracking.trajectory
+    kfs = s.map.keyframes
+    s.tracking.trajectory = [(ts, ref, np.eye(4, dtype=np.float32) if ref in kfs and kfs[ref].timestamp == ts else rel)
+                             for ts, ref, rel in recorded]
+    try:
+        return {int(round(ts * 30)): t for ts, t in s.frame_trajectory()}
+    finally:
+        s.tracking.trajectory = recorded
+
+
+def ate_of(traj, seq, frames) -> float:
+    """SE3-aligned ATE (m) of the trajectory's poses at `frames`."""
+    frames = [f for f in frames if f in traj]
+    return ate_rmse(positions_from_tcw(np.stack([traj[f] for f in frames])),
+                    positions_from_tcw(np.stack([seq.pose(f) for f in frames])), with_scale=False)
+
+
+def loop_edge_drift(traj, seq, a: int, b: int) -> tuple[float, float]:
+    """(m, deg) error of the relative pose T_a T_b^-1 between frames a and b
+    against ground truth: the drift a loop edge between them corrects."""
+    ta, tb = (np.asarray(traj[f], np.float64) for f in (a, b))
+    err = (ta @ np.linalg.inv(tb)) @ np.linalg.inv(seq.pose(a) @ np.linalg.inv(seq.pose(b)))
+    ang = np.degrees(np.arccos(np.clip((np.trace(err[:3, :3]) - 1) / 2, -1, 1)))
+    return float(np.linalg.norm(err[:3, 3])), float(ang)
+
+
+def _loop_report(tag, n, trajs, seq, loop_frame, edge):
+    for how, traj in zip(("as recorded", "keyframe frames at their keyframe"), trajs):
+        full = ate_of(traj, seq, range(n))
+        before = ate_of(traj, seq, range(loop_frame + 1))
+        after = ate_of(traj, seq, range(loop_frame + 1, n))
+        drift = loop_edge_drift(traj, seq, *edge)
+        print(f"{tag} ({how}): ATE {full:.6f} m (SE3); frames 0-{loop_frame} {before:.6f} m, {loop_frame + 1}-"
+              f"{n - 1} {after:.6f} m; drift between frames {edge[0]} and {edge[1]}: {drift[0]:.6f} m, "
+              f"{drift[1]:.4f} deg", flush=True)
+
+
+def run_loop(counts):
+    for n in counts:
+        t0 = time.perf_counter()
+        s, tracked, loop_frame, traj, fixed, seq = loop_run(n, True)
+        lc = s.loop_closing
+        print(f"loop: {n} frames, JAX CPU {tracked}/{n} tracked, {lc.n_loops_closed} loops closed "
+              f"(first at frame {loop_frame}), {len(s.map.good_keyframes())} keyframes, "
+              f"stats {lc.stats}, {time.perf_counter() - t0:.1f} s", flush=True)
+        if lc.n_loops_closed:
+            m = s.map
+            kf_id, loop_kf_id = min((kf.kf_id, le) for kf in m.keyframes.values() for le in kf.loop_edges
+                                    if le < kf.kf_id)
+            edge = tuple(int(round(m.keyframes[k].timestamp * 30)) for k in (kf_id, loop_kf_id))
+            _loop_report("loop on", n, (traj, fixed), seq, loop_frame, edge)
+            t0 = time.perf_counter()
+            _, tracked_off, _, traj_off, fixed_off, _ = loop_run(n, False)
+            print(f"loop off: {n} frames, JAX CPU {tracked_off}/{n} tracked, {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            _loop_report("loop off", n, (traj_off, fixed_off), seq, loop_frame, edge)
+            return
+
+
 if __name__ == "__main__":
-    for which in sys.argv[1:] or ["mono"]:
-        run(which)
+    args = sys.argv[1:] or ["mono"]
+    if args[0] == "loop":
+        run_loop([int(args[1])] if len(args) > 1 else range(LOOP_FIRST, LOOP_LAST + 1, LOOP_STEP))
+    else:
+        for which in args:
+            run(which)
