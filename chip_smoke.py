@@ -833,20 +833,27 @@ def _lazy_vocabulary_run(torch, dev, cam, frames, timer):
 
 def _loop_run(torch, dev, cam, seq, frames, loop_closing: bool, timer):
     """System(RGBD, vocabulary="bootstrap") over `frames`; returns (System,
-    rows of _track_timed, frame at which the first loop closed or None)."""
+    rows of _track_timed, whether each frame made a keyframe, the frames on
+    which a loop closed, the frames after which global BA had written back)."""
     from orbslam2commentedbyxcm_tpu_torch.models.system import Sensor, System
 
     slam = System(cam, Sensor.RGBD, config=_loop_config(), vocabulary="bootstrap",
                   enable_loop_closing=loop_closing, device=dev)
-    rows, loop_frame, kf_new = [], None, []
+    rows, loops, gba_frames, kf_new = [], [], [], []
+    lc = slam.loop_closing
     for i, (img, depth) in enumerate(frames):
         kf_before = slam.map.next_kf_id
+        n_loops, n_gba = (lc.n_loops_closed, lc.gba.n_completed) if lc else (0, 0)
         _track_timed(slam.track_rgbd, rows, (img, depth, i / 30.0), timer)
         kf_new.append(slam.map.next_kf_id > kf_before)
-        if loop_frame is None and loop_closing and slam.loop_closing.n_loops_closed:
-            loop_frame = i
+        if lc and lc.n_loops_closed > n_loops:
+            loops.append(i)
+        if lc and lc.gba.n_completed > n_gba:
+            gba_frames.append(i)
     slam.shutdown()  # waits for global BA and raises what its thread raised
-    return slam, rows, kf_new, loop_frame
+    if lc and lc.gba.n_completed > len(gba_frames):
+        gba_frames.append(len(frames) - 1)
+    return slam, rows, kf_new, loops, gba_frames
 
 
 def _frame_poses(slam) -> dict:
@@ -896,7 +903,8 @@ def phase_loop(torch, dev, card: str):
     k1_lazy = sorted({r[2] for r in lazy_rows})
     _check(k1_lazy == [1], f"lazy vocabulary: K1 launches per frame {k1_lazy}")
     torch.cuda.reset_peak_memory_stats(dev)
-    slam, rows, kf_new, loop_frame = _loop_run(torch, dev, cam, seq, frames, True, timer)
+    slam, rows, kf_new, loops, gba_frames = _loop_run(torch, dev, cam, seq, frames, True, timer)
+    loop_frame = loops[0] if loops else None
     peak_mib = torch.cuda.max_memory_allocated(dev) / 2**20
     launches = {"fused_frontend": k1c.launches, "pose_optimization_fused": k2c.launches}
     lc = slam.loop_closing
@@ -921,20 +929,25 @@ def phase_loop(torch, dev, card: str):
 
     # the same frames with loop closing off (not counted: a comparison run)
     k1_before, k2_before = k1c.launches, k2c.launches
-    off, _, _, _ = _loop_run(torch, dev, cam, seq, frames, False, timer)
+    off, *_ = _loop_run(torch, dev, cam, seq, frames, False, timer)
     poses_off = _frame_poses(off)
     ate_off, ate_off_to_loop = _ate(poses_off, seq, range(N_LOOP)), _ate(poses_off, seq, range(loop_frame + 1))
     drift_off = _drift(poses_off, seq, *edge)
     del off
     k1c.launches, k2c.launches = k1_before, k2_before
     bound = 1.5 * JAX_ATE_LOOP + 0.01
-    _check(ate <= bound, f"loop: ATE {ate:.4f} m over {bound:.4f} m (1.5 x JAX {JAX_ATE_LOOP} m + 1 cm)")
+    # what a failed accuracy check reports with it
+    run = (f"loops closed on frames {loops}, global BA written back after frames {gba_frames}, "
+           f"{len(slam.map.good_keyframes())} keyframes; ATE {ate:.4f} m (frames 0-{loop_frame} {ate_to_loop:.4f}), "
+           f"loop closing off {ate_off:.4f} m (frames 0-{loop_frame} {ate_off_to_loop:.4f}); drift between frames "
+           f"{edge[0]} and {edge[1]} {drift[0]:.4f} m, loop closing off {drift_off[0]:.4f} m")
+    _check(ate <= bound, f"loop: ATE {ate:.4f} m over {bound:.4f} m (1.5 x JAX {JAX_ATE_LOOP} m + 1 cm) | {run}")
     _check(ate <= LOOP_ATE_CUT * ate_off_to_loop,
            f"loop: ATE {ate:.4f} m with loop closing, {ate_off_to_loop:.4f} m without over frames 0-{loop_frame} "
-           f"(want <= {LOOP_ATE_CUT} x)")
+           f"(want <= {LOOP_ATE_CUT} x) | {run}")
     _check(drift[0] <= LOOP_DRIFT_CUT * drift_off[0],
            f"loop: drift between frames {edge[0]} and {edge[1]} {drift[0]:.4f} m with loop closing, "
-           f"{drift_off[0]:.4f} m without (want <= {LOOP_DRIFT_CUT} x)")
+           f"{drift_off[0]:.4f} m without (want <= {LOOP_DRIFT_CUT} x) | {run}")
 
     # save, load into a fresh System, relocalize on a revisited frame
     with tempfile.TemporaryDirectory() as tmp:
@@ -971,8 +984,9 @@ def phase_loop(torch, dev, card: str):
           f"{lazy_words}-word tree after {n_lazy} frames, bit-equal to the CPU's (train_vocabulary on the card "
           f"{1e3 * lazy_card_s:.1f} ms, CPU {1e3 * lazy_cpu_s:.1f} ms) | "
           f"System(RGBD, vocabulary=bootstrap, loop closing, device={dev}), BoxSequence orbit "
-          f"1.3 turns, 640x480, 1000 features, {N_LOOP} frames: {lc.n_loops_closed} loop(s) closed, the first on frame "
-          f"{loop_frame} (keyframe {split['kf_id']} to keyframe {split['loop_kf_id']}), ground truth: {adj}; "
+          f"1.3 turns, 640x480, 1000 features, {N_LOOP} frames: {lc.n_loops_closed} loop(s) closed, on frames "
+          f"{loops} (the first keyframe {split['kf_id']} to keyframe {split['loop_kf_id']}), global BA written back "
+          f"after frames {gba_frames}, ground truth: {adj}; "
           f"{len(slam.map.good_keyframes())} keyframes, {slam.map.n_valid_points()} points, stats {lc.stats} | "
           f"ATE {ate:.4f} m (bound {bound:.4f} m = 1.5 x JAX CPU {JAX_ATE_LOOP} m + 1 cm; frames 0-{loop_frame}: "
           f"{ate_to_loop:.4f} m); loop closing off, same frames: {ate_off:.4f} m (frames 0-{loop_frame}: "

@@ -416,15 +416,16 @@ class LoopClosing:
             non_corrected[gid] = s_old
 
         # 2. the group's points remapped (p' = S_corrected^-1 S_old p), one
-        # batched transform per member, then the members' poses
-        moved = np.zeros(m.n_points, bool)
+        # batched transform per member, then the members' poses; each moved
+        # point remembers the member that moved it (mnCorrectedReference)
+        corrected_by = np.full(m.n_points, -1, np.int64)
         for gid, s_corr in corrected.items():
             gkf = m.keyframes[gid]
             corr_tf = np.linalg.inv(s_corr) @ non_corrected[gid]
             pids_g = np.unique(gkf.map_pt[gkf.map_pt >= 0])
-            pids_g = pids_g[m.pt_valid[pids_g] & ~moved[pids_g]]
+            pids_g = pids_g[m.pt_valid[pids_g] & (corrected_by[pids_g] < 0)]
             if len(pids_g):
-                moved[pids_g] = True
+                corrected_by[pids_g] = gid
                 m.pt_xyz[pids_g] = (m.pt_xyz[pids_g] @ corr_tf[:3, :3].T + corr_tf[:3, 3]).astype(np.float32)
             gkf.set_pose(_sim3_to_se3(s_corr))
             m.update_connections(gkf)
@@ -457,7 +458,7 @@ class LoopClosing:
         t0 = self._lap("correction", t0)
 
         # 4. the essential graph (reference :621 / Optimizer.cc:873)
-        self._optimize_essential_graph(kf, loop_kf_id, corrected, non_corrected, loop_connections)
+        self._optimize_essential_graph(kf, loop_kf_id, corrected, non_corrected, loop_connections, corrected_by)
         t0 = self._lap("essential_graph", t0)
         # loop-edge endpoints are never culled (KeyFrame::AddLoopEdge sets mbNotErase)
         kf.loop_edges.add(loop_kf_id)
@@ -473,7 +474,7 @@ class LoopClosing:
         m.big_change_idx += 1
         self.closure_splits.append(dict(self.last_split, kf_id=kf.kf_id, loop_kf_id=loop_kf_id))
 
-    def _optimize_essential_graph(self, kf, loop_kf_id, corrected, non_corrected, loop_connections=None):
+    def _optimize_essential_graph(self, kf, loop_kf_id, corrected, non_corrected, loop_connections, corrected_by):
         m = self.map
         kfs = sorted(k.kf_id for k in m.good_keyframes())
         slot = {kf_id: i for i, kf_id in enumerate(kfs)}
@@ -497,7 +498,7 @@ class LoopClosing:
 
         # LoopConnections first (Optimizer.cc:920-960), measured with the
         # corrected poses
-        for a, links in (loop_connections or {}).items():
+        for a, links in loop_connections.items():
             for b in links:
                 add_edge(a, b)
         for kf_id in kfs:
@@ -532,12 +533,16 @@ class LoopClosing:
         out = res.poses.cpu().numpy()
         self.last_split.update(eg_vertices=k, eg_edges=len(edge_i), eg_iterations=res.iterations)
 
-        # write-back: points through their reference keyframe's before/after
-        # transform (one batched gather), then the poses
-        old_stack = np.stack([non_corrected.get(i, _sim3_of(m.keyframes[i])) for i in kfs])
+        # write-back: each point through its reference keyframe's transform
+        # from the vertex's initial Sim3 (the corrected one for the group) to
+        # the optimized one (one batched gather), then the poses; a point the
+        # correction moved follows the keyframe that moved it (reference
+        # OptimizeEssentialGraph: vScw, mnCorrectedReference). The JAX package
+        # maps from the pre-correction pose, which corrects those points twice
+        # (ROADMAP.md Queue 3).
         pids = m.all_point_ids()
         kfs_arr = np.asarray(kfs, np.int64)
-        ref = m.pt_ref_kf[pids]
+        ref = np.where(corrected_by[pids] >= 0, corrected_by[pids], m.pt_ref_kf[pids])
         pos = np.minimum(np.searchsorted(kfs_arr, ref), k - 1)
         in_slot = kfs_arr[pos] == ref
         # a point whose reference keyframe is no vertex takes its first observer
@@ -547,7 +552,7 @@ class LoopClosing:
             if first in slot:
                 pos[i] = slot[first]
                 in_slot[i] = True
-        tf_all = np.linalg.inv(out).astype(np.float32) @ old_stack
+        tf_all = np.linalg.inv(out).astype(np.float32) @ poses
         sel = np.nonzero(in_slot)[0]
         if len(sel):
             tfs = tf_all[pos[sel]]

@@ -12,8 +12,8 @@ round and masks every update once the round has converged, which gives the
 while-loop's result without reading a flag back to the host.
 
 `bundle_adjustment` is plain torch, as it is XLA in the JAX package. Its
-block sums are `index_add_` segment sums in float32 (the JAX package writes
-them as one-hot matmuls, a TPU workaround for scatters), and its LM loop
+block sums are `segment_sum`s in float32 (the JAX package writes them as
+one-hot matmuls, a TPU workaround for scatters), and its LM loop
 reads the convergence flag back to the host once per iteration to stop early,
 as the JAX package's while-loop does.
 
@@ -33,6 +33,19 @@ from orbslam2commentedbyxcm_tpu_torch.utils.geometry import hat, se3_exp
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815
+
+
+def segment_sum(values: torch.Tensor, index: torch.Tensor, n: int) -> torch.Tensor:
+    """(n, ...) sums of the rows of `values` by `index`, added in an order
+    that depends on the data alone, so a run repeats itself bit for bit. On
+    the card `index_put_(accumulate=True)` sorts the indices and adds each
+    run of equal ones in row order; `index_add_` there adds with atomics in
+    whatever order the threads arrive. On the CPU `index_add_` adds in row
+    order."""
+    out = torch.zeros((n,) + values.shape[1:], dtype=values.dtype, device=values.device)
+    if values.is_cuda:
+        return out.index_put_((index,), values, accumulate=True)
+    return out.index_add_(0, index, values)
 
 
 class PoseOptResult(NamedTuple):
@@ -261,9 +274,6 @@ def bundle_adjustment(
         c2 = edge_terms(poses_, points_, active, use_huber)[4]
         rho = _huber(c2, delta2)[1] if use_huber else c2
         return torch.sum(rho * active)
-
-    def segment_sum(values, index, n):
-        return torch.zeros((n,) + values.shape[1:], device=dev).index_add_(0, index, values)
 
     def lm_step(poses_, points_, lam, err, active, use_huber):
         r, j_pose, j_point, w, _ = edge_terms(poses_, points_, active, use_huber)

@@ -13,7 +13,8 @@ per evaluation. Two solvers, dispatched by
 `solve_pose_graph` on the vertex count:
 
   * dense (`optimize_pose_graph`): the (7K, 7K) Hessian assembled from the
-    per-edge blocks with `index_add_`, one Cholesky per LM iteration;
+    per-edge blocks with `ops/optim.segment_sum`, one Cholesky per LM
+    iteration;
   * matrix-free (`optimize_pose_graph_cg`): block-Jacobi preconditioned CG
     applying H = J^T J edge-wise, O(E) memory (the g2o sparse block solver's
     role, Thirdparty/g2o/g2o/core/block_solver.hpp:51-90).
@@ -28,6 +29,7 @@ from typing import NamedTuple
 
 import torch
 
+from orbslam2commentedbyxcm_tpu_torch.ops.optim import segment_sum
 from orbslam2commentedbyxcm_tpu_torch.utils.geometry import (
     hat,
     sim3_exp,
@@ -109,7 +111,7 @@ def optimize_pose_graph(
     edge_weight: torch.Tensor | None = None,
     n_iters: int = 20,
 ) -> PoseGraphResult:
-    """Dense LM: H (7K, 7K) from the per-edge blocks by index_add_, one
+    """Dense LM: H (7K, 7K) from the per-edge blocks by segment_sum, one
     Cholesky per iteration, fixed vertices held by zero Jacobians and a unit
     diagonal."""
     k = poses.shape[0]
@@ -129,15 +131,13 @@ def optimize_pose_graph(
         b_ii = torch.einsum("eri,erj->eij", j_i, j_i)
         b_jj = torch.einsum("eri,erj->eij", j_j, j_j)
         b_ij = torch.einsum("eri,erj->eij", j_i, j_j)
-        blocks = torch.zeros((k * k, 7, 7), dtype=r.dtype, device=dev)
-        blocks.index_add_(0, ei * k + ei, b_ii).index_add_(0, ej * k + ej, b_jj)
-        blocks.index_add_(0, ei * k + ej, b_ij).index_add_(0, ej * k + ei, b_ij.transpose(1, 2))
+        blocks = segment_sum(torch.cat([b_ii, b_jj, b_ij, b_ij.transpose(1, 2)]),
+                             torch.cat([ei * k + ei, ej * k + ej, ei * k + ej, ej * k + ei]), k * k)
         h = blocks.reshape(k, k, 7, 7).permute(0, 2, 1, 3).reshape(7 * k, 7 * k)
-        g = torch.zeros((k, 7), dtype=r.dtype, device=dev)
-        g.index_add_(0, ei, torch.einsum("eri,er->ei", j_i, r_w))
-        g.index_add_(0, ej, torch.einsum("eri,er->ei", j_j, r_w))
-        dvec = torch.zeros((k, 7), dtype=r.dtype, device=dev)
-        dvec.index_add_(0, ei, b_ii[:, diag7, diag7]).index_add_(0, ej, b_jj[:, diag7, diag7])
+        eij = torch.cat([ei, ej])
+        g = segment_sum(torch.cat([torch.einsum("eri,er->ei", j_i, r_w), torch.einsum("eri,er->ei", j_j, r_w)]),
+                        eij, k)
+        dvec = segment_sum(torch.cat([b_ii[:, diag7, diag7], b_jj[:, diag7, diag7]]), eij, k)
         return err, h, dvec.reshape(-1), g.reshape(-1)
 
     fmask = free.repeat_interleave(7)
@@ -193,9 +193,10 @@ def optimize_pose_graph_cg(
     eye7 = torch.eye(7, device=dev)
     diag7 = torch.arange(7, device=dev)
 
+    eij = torch.cat([ei, ej])
+
     def scatter7(vals_i, vals_j):
-        out = torch.zeros((k,) + vals_i.shape[1:], dtype=vals_i.dtype, device=dev)
-        return out.index_add_(0, ei, vals_i).index_add_(0, ej, vals_j)
+        return segment_sum(torch.cat([vals_i, vals_j]), eij, k)
 
     def eval_point(p):
         r, j_i, j_j = _edge_res_jac(p[ei], p[ej], edge_meas)

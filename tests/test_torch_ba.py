@@ -132,3 +132,18 @@ def test_inv3x3_and_triangulate_match_jax():
                                           jnp.asarray(uvn[0]), jnp.asarray(uvn[1])))
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(got, pts, rtol=1e-3, atol=1e-3)
+
+
+def test_segment_sum_matches_numpy():
+    """BA's block sums: on the CPU `segment_sum` is `index_add_` (row order),
+    and equals numpy's float64 np.add.at within float32 rounding."""
+    rng = np.random.default_rng(2)
+    values = rng.normal(size=(3000, 6, 3)).astype(np.float32)
+    index = rng.integers(0, 40, 3000)
+    got = toptim.segment_sum(torch.from_numpy(values), torch.from_numpy(index), 41)
+    same = torch.zeros(41, 6, 3).index_add_(0, torch.from_numpy(index), torch.from_numpy(values))
+    np.testing.assert_array_equal(got.numpy(), same.numpy())
+    ref = np.zeros((41, 6, 3))
+    np.add.at(ref, index, values.astype(np.float64))
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-4)
+    assert not got[40].any()  # a segment with no rows sums to zero

@@ -263,3 +263,17 @@ def test_system_on_card_matches_cpu_twins(cuda_device):
     assert fk.fused_frontend_pyramid.launches - k1 == len(frames)  # one launch per extraction
     assert poseopt_kernel.pose_optimization_fused.launches - k2 >= 2 * (len(frames) - 1)
     assert card.map.n_valid_points() == cpu.map.n_valid_points()
+
+
+def test_segment_sum_repeats_on_card(cuda_device):
+    """BA's and the pose graph's block sums on the card: the same inputs give
+    the same bits on every call (index_add_ there adds with atomics in no
+    fixed order), within float32 rounding of a float64 sum."""
+    rng = np.random.default_rng(3)
+    values = torch.from_numpy(rng.normal(size=(60000, 7, 7)).astype(np.float32)).to(cuda_device)
+    index = torch.from_numpy(rng.integers(0, 64, 60000)).to(cuda_device)
+    first = optim.segment_sum(values, index, 64)
+    for _ in range(3):
+        assert torch.equal(optim.segment_sum(values, index, 64), first)
+    ref = torch.zeros(64, 7, 7, dtype=torch.float64).index_add_(0, index.cpu(), values.cpu().double())
+    np.testing.assert_allclose(first.cpu().numpy(), ref.numpy(), atol=2e-3)
