@@ -7,8 +7,8 @@ Builds the hand-written CUDA kernels from orbslam2commentedbyxcm_tpu_torch/csrc,
 checks each against its plain torch twin on the card, and drives the port the
 way a user would: the per-frame tracking step, then the System's synchronous
 RGB-D, stereo and monocular SLAM, relocalization with the shipped vocabulary,
-localization mode, and loop closing with map save and load. Phases, each
-printing one line:
+localization mode, loop closing with map save and load, the async pipeline
+and the figure-eight loop gate. Phases, each printing one line:
 
   1. device   the card's name and power limit (nvidia-smi), TF32 flags
   2. build    nvcc build of both kernels (one nvcc per source, in parallel), seconds
@@ -50,7 +50,21 @@ printing one line:
               loop closing off, the drift at the loop edge cut; the loop
               keyframe's time split; then save_map, load_map into a fresh
               System and one revisited frame relocalized
- 13. kernels  one JSON line: per kernel, launches summed over phases 6-12,
+ 13. async    phase 12's orbit through System(async_mapping=True, tracer=Tracer()):
+              mapping and loop closing on worker threads; 130/130 tracked, a
+              loop closed with no false closure, ATE within phase 12's bound,
+              shutdown() raising nothing and joining both workers; frame
+              times (ordinary, keyframe, the loop keyframe's) beside phase
+              12's synchronous ones, ordinary frames split by whether a worker
+              was busy, the queue cap's deferrals, aborted local BAs, the
+              loop worker's split, the first and later calls of the loop
+              solvers on each thread, the tracer's table
+ 14. eight    the gauntlet's figure-eight (utils/gauntlet.run_sequence, 420
+              frames at 400x300, 900 features, exposure drift and a moving
+              occluder), synchronous then async, each held to the JAX
+              mini-gauntlet's gates: tracked >= frames - 5, a loop closed, no
+              false and no missed closure, drift under 0.8%
+ 15. kernels  one JSON line: per kernel, launches summed over phases 6-14,
               error, times, bound
 
 The last line is {"ok": true, "device": {...}}. Any failed phase exits non-zero
@@ -60,11 +74,13 @@ Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -763,33 +779,6 @@ def phase_localization(torch, dev, slam, seq):
     return launches
 
 
-def adjudicate_loops(slam, seq, min_kf_gap: int = 10, colocate_radius: float = 1.0,
-                     max_view_angle_deg: float = 40.0) -> dict:
-    """Ground-truth loop adjudication (benchmarks/gauntlet.py's rule, in
-    numpy): a keyframe pair is co-located when its true camera centers are
-    within `colocate_radius` and its viewing directions within
-    `max_view_angle_deg`, `min_kf_gap` or more keyframes apart. A recorded
-    loop edge between co-located keyframes is a hit, any other a false
-    closure; a co-located pair neither covisible, parent-linked nor
-    loop-linked is missed."""
-    kfs = sorted(slam.map.good_keyframes(), key=lambda k: k.kf_id)
-    gt = [seq.pose(int(round(kf.timestamp * 30.0))) for kf in kfs]
-    centers = np.stack([-t[:3, :3].T @ t[:3, 3] for t in gt])
-    views = np.stack([t[:3, :3].T @ np.array([0.0, 0.0, 1.0]) for t in gt])
-    ids = np.array([kf.kf_id for kf in kfs])
-    dist = np.linalg.norm(centers[:, None] - centers[None, :], axis=-1)
-    co = ((dist < colocate_radius) & (np.clip(views @ views.T, -1, 1) > np.cos(np.deg2rad(max_view_angle_deg)))
-          & (np.abs(ids[:, None] - ids[None, :]) >= min_kf_gap))
-    slot = {kf.kf_id: i for i, kf in enumerate(kfs)}
-    loop_pairs = {tuple(sorted((slot[kf.kf_id], slot[le]))) for kf in kfs for le in kf.loop_edges if le in slot}
-    hits = sum(1 for a, b in loop_pairs if co[a, b])
-    missed = sum(1 for a, b in zip(*np.triu_indices(len(kfs), 1)) if co[a, b] and not (
-        kfs[b].kf_id in kfs[a].covis or kfs[a].parent == kfs[b].kf_id or kfs[b].parent == kfs[a].kf_id
-        or (a, b) in loop_pairs))
-    return {"loop_edges": len(loop_pairs), "hits": hits, "false_closures": len(loop_pairs) - hits,
-            "colocated_pairs": int(np.triu(co, 1).sum()), "missed": missed}
-
-
 def _loop_config():
     from orbslam2commentedbyxcm_tpu_torch.models.tracking import TrackingConfig
 
@@ -890,6 +879,7 @@ def phase_loop(torch, dev, card: str):
 
     from orbslam2commentedbyxcm_tpu_torch.models.system import Sensor, System
     from orbslam2commentedbyxcm_tpu_torch.models.tracking import TrackingState
+    from orbslam2commentedbyxcm_tpu_torch.utils.gauntlet import adjudicate_loops
     from orbslam2commentedbyxcm_tpu_torch.utils.synth import BoxSequence, default_camera
 
     cam = default_camera(640, 480)
@@ -903,7 +893,8 @@ def phase_loop(torch, dev, card: str):
     k1_lazy = sorted({r[2] for r in lazy_rows})
     _check(k1_lazy == [1], f"lazy vocabulary: K1 launches per frame {k1_lazy}")
     torch.cuda.reset_peak_memory_stats(dev)
-    slam, rows, kf_new, loops, gba_frames = _loop_run(torch, dev, cam, seq, frames, True, timer)
+    with _timed_calls(torch) as solver_calls:
+        slam, rows, kf_new, loops, gba_frames = _loop_run(torch, dev, cam, seq, frames, True, timer)
     loop_frame = loops[0] if loops else None
     peak_mib = torch.cuda.max_memory_allocated(dev) / 2**20
     launches = {"fused_frontend": k1c.launches, "pose_optimization_fused": k2c.launches}
@@ -913,7 +904,7 @@ def phase_loop(torch, dev, card: str):
     _check(lc.n_loops_closed >= 1 and loop_frame is not None, f"loop: no loop closed over {N_LOOP} frames, "
            f"stats {lc.stats}")
     adj = adjudicate_loops(slam, seq)
-    _check(adj["loop_edges"] >= 1, f"loop: no loop edge recorded ({adj})")
+    _check(adj["loop_edge_hits"] + adj["false_closures"] >= 1, f"loop: no loop edge recorded ({adj})")
     _check(adj["false_closures"] == 0, f"loop: false closures by ground truth ({adj})")
     _check(lc.gba.n_completed >= 1, f"loop: global BA never completed (aborted {lc.gba.n_aborted})")
     split = lc.closure_splits[0]
@@ -1002,7 +993,186 @@ def phase_loop(torch, dev, card: str):
           f"per-frame ms: ordinary ({len(plain_ms)}) {_stats(plain_ms)}; keyframe ({len(kf_ms)}) {_stats(kf_ms)} | "
           f"save_map {1e3 * save_s:.1f} ms ({size_mib:.1f} MiB), load_map {1e3 * load_s:.1f} ms, frame "
           f"{LOOP_RELOC_FRAME} relocalized against the reloaded map within {pos:.4f} m / {rot:.4f} deg in "
-          f"{reloc_rows[0][1]:.3f} ms")
+          f"{reloc_rows[0][1]:.3f} ms | loop solvers, host clock with a synchronize (ms): {_calls_text(solver_calls)}")
+    sync = {"ordinary": plain_ms, "keyframe": kf_ms, "loop": [rows[loop_frame][1]], "ate": ate,
+            "keyframes": len(slam.map.good_keyframes())}
+    return launches, {"cam": cam, "seq": seq, "frames": frames, "sync": sync}
+
+@contextlib.contextmanager
+def _timed_calls(torch):
+    """Time every call of the loop closer's batched solvers (Sim3 RANSAC, the
+    Sim3 refinement, the essential graph) on the host clock, a synchronize
+    included, with the thread it ran on: [(solver, thread, ms)]. The first
+    call on a thread pays for its cuSOLVER / cuBLAS handles."""
+    from orbslam2commentedbyxcm_tpu_torch.models import loop_closing as lc_mod
+
+    calls, saved = [], []
+    for mod, name in ((lc_mod.sim3solver, "ransac_sim3"), (lc_mod.posegraph, "optimize_sim3"),
+                      (lc_mod.posegraph, "solve_pose_graph")):
+        fn = getattr(mod, name)
+
+        def timed(*a, _fn=fn, _name=name, **k):
+            t0 = time.perf_counter()
+            out = _fn(*a, **k)
+            torch.cuda.synchronize()
+            calls.append((_name, threading.current_thread().name, 1e3 * (time.perf_counter() - t0)))
+            return out
+
+        saved.append((mod, name, fn))
+        setattr(mod, name, timed)
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _calls_text(calls) -> str:
+    """Per solver and thread: the first call, then the later ones."""
+    out = []
+    for key in dict.fromkeys((name, thread) for name, thread, _ in calls):
+        ms = [m for name, thread, m in calls if (name, thread) == key]
+        later = f", later {len(ms) - 1}: {_stats(ms[1:])}" if len(ms) > 1 else ""
+        out.append(f"{key[0]} on {key[1]}: first {ms[0]:.3f}{later}")
+    return "; ".join(out) or "none called"
+
+
+def _busy(slam) -> bool:
+    """A worker has keyframes queued or in hand, or global BA is running."""
+    workers = [slam.local_mapping, slam._loop_worker]
+    return (any(w is not None and w._queue.unfinished_tasks > 0 for w in workers)
+            or (slam.loop_closing is not None and slam.loop_closing.gba.running()))
+
+
+def phase_async_loop(torch, dev, card: str, loop):
+    """Phase 12's orbit through the async pipeline (mapping and loop closing
+    on worker threads) with a Tracer; frame times beside phase 12's
+    synchronous ones. Returns the kernel launches."""
+    from orbslam2commentedbyxcm_tpu_torch.models.system import Sensor, System
+    from orbslam2commentedbyxcm_tpu_torch.utils.gauntlet import adjudicate_loops
+    from orbslam2commentedbyxcm_tpu_torch.utils.tracing import Tracer
+
+    cam, seq, frames, sync = loop["cam"], loop["seq"], loop["frames"], loop["sync"]
+    k1c, k2c = _launch_counters()
+    timer = _EventTimer(torch)
+    tracer = Tracer()
+    slam = System(cam, Sensor.RGBD, config=_loop_config(), vocabulary="bootstrap", async_mapping=True,
+                  tracer=tracer, device=dev)
+    lc, lm = slam.loop_closing, slam.local_mapping
+    workers = (lm, slam._loop_worker)
+    torch.cuda.synchronize()
+    k1c.launches = k2c.launches = 0
+    rows, kf_new, overlap, loops, gba_frames = [], [], [], [], []
+    with _timed_calls(torch) as solver_calls:
+        for i, (img, depth) in enumerate(frames):
+            kf_before, n_loops, n_gba = slam.map.next_kf_id, lc.n_loops_closed, lc.gba.n_completed
+            busy = _busy(slam)
+            _track_timed(slam.track_rgbd, rows, (img, depth, i / 30.0), timer)
+            overlap.append(busy or _busy(slam))
+            kf_new.append(slam.map.next_kf_id > kf_before)
+            if lc.n_loops_closed > n_loops:
+                loops.append(i)
+            if lc.gba.n_completed > n_gba:
+                gba_frames.append(i)
+        n_loops, n_gba = lc.n_loops_closed, lc.gba.n_completed
+        t0 = time.perf_counter()
+        slam.shutdown()  # drains both queues and global BA; raises what a worker raised
+        drain_s = time.perf_counter() - t0
+    launches = {"fused_frontend": k1c.launches, "pose_optimization_fused": k2c.launches}
+    if lc.n_loops_closed > n_loops:
+        loops.append(len(frames))  # closed while shutdown drained the queues
+    if lc.gba.n_completed > n_gba:
+        gba_frames.append(len(frames))
+    _check(not any(w._thread.is_alive() for w in workers), "async: a worker thread did not end at shutdown")
+    _check(all(r[0] is not None for r in rows), f"async: {sum(r[0] is None for r in rows)} frames not tracked")
+    _check(not slam._archived_kf_trajectory, "async: tracking was lost and the System reset")
+    _check(lc.n_loops_closed >= 1, f"async: no loop closed over {N_LOOP} frames, stats {lc.stats}")
+    adj = adjudicate_loops(slam, seq)
+    _check(adj["loop_edge_hits"] >= 1 and adj["false_closures"] == 0, f"async: ground truth {adj}")
+    poses = _frame_poses(slam)
+    ate = _ate(poses, seq, range(N_LOOP))
+    bound = 1.5 * JAX_ATE_LOOP + 0.01
+    split = lc.closure_splits[0]
+    loop_kf_frame = int(round(slam.map.keyframes[split["kf_id"]].timestamp * 30.0))
+    _check(ate <= bound, f"async: ATE {ate:.4f} m over {bound:.4f} m (1.5 x JAX {JAX_ATE_LOOP} m + 1 cm); loops "
+           f"closed after frames {loops} (keyframe of frame {loop_kf_frame}), {len(slam.map.good_keyframes())} "
+           f"keyframes, global BA written back after frames {gba_frames}")
+    _check({r[2] for r in rows} == {1}, f"async: K1 launches per frame {sorted({r[2] for r in rows})}")
+    _check(min(r[3] for r in rows[1:]) >= 2, "async: a tracked frame launched K2 fewer than 2 times")
+    ms = {"ordinary": [rows[i][1] for i in range(1, N_LOOP) if not kf_new[i] and i != loop_kf_frame],
+          "keyframe": [rows[i][1] for i in range(1, N_LOOP) if kf_new[i] and i != loop_kf_frame],
+          "loop": [rows[loop_kf_frame][1]]}
+    plain = [i for i in range(1, N_LOOP) if not kf_new[i]]
+    lap = {k: [rows[i][1] for i in plain if overlap[i] == k] for k in (True, False)}
+    st = tracer.stats()["spans"]
+    print(f"[13 async] {card} | System(RGBD, vocabulary=bootstrap, async_mapping=True, tracer, device={dev}), "
+          f"phase 12's orbit, {N_LOOP} frames: {len(rows)}/{N_LOOP} tracked, {lc.n_loops_closed} loop(s) closed, "
+          f"seen after frames {loops} (the keyframe of frame {loop_kf_frame}, keyframe {split['kf_id']} to "
+          f"{split['loop_kf_id']}), global BA written back after frames {gba_frames}; ground truth {adj}; "
+          f"{len(slam.map.good_keyframes())} keyframes (sync {sync['keyframes']}), {slam.map.n_valid_points()} "
+          f"points | ATE {ate:.4f} m (bound {bound:.4f}; sync {sync['ate']:.4f}) | per-frame ms, CUDA events on the "
+          f"shared default stream, async vs sync: " + "; ".join(
+              f"{k} ({len(ms[k])}) {_stats(ms[k])} vs ({len(sync[k])}) {_stats(sync[k])}" for k in ms)
+          + f" | ordinary frames while a worker or global BA was busy ({len(lap[True])}) {_stats(lap[True])}, "
+          f"while all were idle ({len(lap[False])}) {_stats(lap[False])} | shutdown drained in "
+          f"{1e3 * drain_s:.1f} ms | keyframes deferred by the queue cap {slam.tracking.n_kf_deferred}, local BAs "
+          f"{lm.n_local_ba} ({lm.n_ba_aborted} stopped after phase 1, {lm.n_ba_deferred} skipped for newer "
+          f"keyframes), deepest queue: mapping {lm.max_depth}, loop {workers[1].max_depth} | loop worker split "
+          f"(host clock, ms): " + "; ".join(f"{k} {1e3 * v:.3f}" if isinstance(v, float) else f"{k} {v}"
+                                          for k, v in split.items())
+          + f" | loop solvers, host clock with a synchronize (ms): {_calls_text(solver_calls)} | tracer spans "
+          f"(host clock; mean / p50 / p95 ms, n): " + "; ".join(
+              f"{k} {d['mean_ms']:.2f}/{d['p50_ms']:.2f}/{d['p95_ms']:.2f} ({d['n']})"
+              for k, d in sorted(st.items(), key=lambda kv: -kv[1]["total_s"])))
+    print(tracer.summary_table())
+    return launches
+
+
+EIGHT_FRAMES = 420
+
+
+def _eight_camera():
+    """The JAX mini-gauntlet's figure-eight camera (tests/test_mini_gauntlet.py)."""
+    from orbslam2commentedbyxcm_tpu_torch.utils.camera import Camera
+
+    return Camera(fx=312.0, fy=312.0, cx=200.0, cy=150.0, width=400, height=300, bf=25.0, th_depth=50.0)
+
+
+def phase_eight(torch, dev, card: str):
+    """The figure-eight of the gauntlet (utils/gauntlet.run_sequence, the
+    JAX mini-gauntlet's camera and features), synchronous then async, each
+    held to tests/test_mini_gauntlet.py's gates. Returns the kernel launches."""
+    from orbslam2commentedbyxcm_tpu_torch.utils.gauntlet import render_frames, run_sequence
+    from orbslam2commentedbyxcm_tpu_torch.utils.tracing import Tracer
+
+    cam = _eight_camera()
+    t0 = time.perf_counter()
+    images = render_frames("eight", EIGHT_FRAMES, cam)  # once for both runs
+    render_s = time.perf_counter() - t0
+    k1c, k2c = _launch_counters()
+    launches = {"fused_frontend": 0, "pose_optimization_fused": 0}
+    for async_mapping in (False, True):
+        torch.cuda.synchronize()
+        k1c.launches = k2c.launches = 0
+        t0 = time.perf_counter()
+        tracer = Tracer()
+        rec = run_sequence("eight", EIGHT_FRAMES, augment=True, async_mapping=async_mapping, camera=cam,
+                           n_features=900, device=dev, images=images, tracer=tracer)
+        wall = time.perf_counter() - t0
+        launches["fused_frontend"] += k1c.launches
+        launches["pose_optimization_fused"] += k2c.launches
+        tag = "async" if async_mapping else "sync"
+        gt = rec["gt_loops"]
+        _check(rec["tracked"] >= rec["frames"] - 5 and rec["loops_closed"] >= 1 and gt["false_closures"] == 0
+               and gt["missed"] == 0 and rec["drift_pct"] < 0.8, f"eight ({tag}): {rec}")
+        _check(k1c.launches >= rec["frames"] and k2c.launches >= 2 * (rec["tracked"] - 1),
+               f"eight ({tag}): K1 {k1c.launches}, K2 {k2c.launches} launches over {rec['frames']} frames")
+        print(f"[14 eight {tag}] {card} | run_sequence('eight', {EIGHT_FRAMES}, augment=True, "
+              f"async_mapping={async_mapping}, 400x300, 900 features, device={dev}): {wall:.1f} s wall (the "
+              f"frames rendered beforehand in {render_s:.1f} s), K1 {k1c.launches}, K2 {k2c.launches} launches | "
+              f"{rec} | tracer spans (host clock; total s / p50 ms, n): " + "; ".join(
+                  f"{k} {d['total_s']:.2f}/{d['p50_ms']:.2f} ({d['n']})"
+                  for k, d in sorted(tracer.stats()["spans"].items(), key=lambda kv: -kv[1]["total_s"])))
     return launches
 
 
@@ -1023,19 +1193,29 @@ def main() -> int:
         return 2
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    card = phase_device(torch)
-    phase_build()
-    k1 = phase_k1(torch, dev)
-    k2 = phase_k2(torch, dev)
-    phase_flagship(torch, dev)
-    runs = [phase_tracking(torch, dev, k1, k2),
-            phase_slam(torch, dev, "RGBD", N_RGBD, JAX_ATE_RGBD, 7),
-            phase_slam(torch, dev, "STEREO", N_STEREO, JAX_ATE_STEREO, 8),
-            phase_mono(torch, dev)]
-    reloc_launches, slam, seq = phase_reloc(torch, dev)
-    runs += [reloc_launches, phase_localization(torch, dev, slam, seq)]
+    secs = {}
+
+    def timed(tag, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        secs[tag] = time.perf_counter() - t
+        return out
+
+    card = timed(1, phase_device, torch)
+    timed(2, phase_build)
+    k1 = timed(3, phase_k1, torch, dev)
+    k2 = timed(4, phase_k2, torch, dev)
+    timed(5, phase_flagship, torch, dev)
+    runs = [timed(6, phase_tracking, torch, dev, k1, k2),
+            timed(7, phase_slam, torch, dev, "RGBD", N_RGBD, JAX_ATE_RGBD, 7),
+            timed(8, phase_slam, torch, dev, "STEREO", N_STEREO, JAX_ATE_STEREO, 8),
+            timed(9, phase_mono, torch, dev)]
+    reloc_launches, slam, seq = timed(10, phase_reloc, torch, dev)
+    runs += [reloc_launches, timed(11, phase_localization, torch, dev, slam, seq)]
     del slam
-    runs.append(phase_loop(torch, dev, card))
+    loop_launches, loop = timed(12, phase_loop, torch, dev, card)
+    runs += [loop_launches, timed(13, phase_async_loop, torch, dev, card, loop),
+             timed(14, phase_eight, torch, dev, card)]
     launches = {name: sum(r[name] for r in runs) for name in runs[0]}
     for r in runs:
         _check(all(r.values()), f"a kernel of the main path was never launched: {r}")
@@ -1049,7 +1229,8 @@ def main() -> int:
          "replaces": "orbslam2commentedbyxcm_tpu/ops/pallas_poseopt.py:300",
          "launches": launches["pose_optimization_fused"], **k2},
     ]
-    print(f"[13 total] {time.perf_counter() - t0:.1f} s")
+    print(f"[15 total] {time.perf_counter() - t0:.1f} s; by phase: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

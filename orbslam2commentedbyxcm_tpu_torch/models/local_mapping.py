@@ -10,9 +10,9 @@ src/LocalMapping.cc):
                                  scale gates, all neighbors in one batch
   SearchInNeighbors (:506)    -> projection matching into every target at once
                                  (a leading target dimension) + host merge
-  Local BA (:75)              -> ops/optim.bundle_adjustment, 5 + 10 rounds
-                                 (solve_ba_problem can poll an abort flag
-                                 between phases; global BA uses it)
+  Local BA (:75)              -> ops/optim.bundle_adjustment, 5 + 10 rounds,
+                                 the abort flag polled between the two (the
+                                 reference's mbAbortBA)
   KeyFrameCulling (:708)      -> 90%-redundancy rule
   initial_ba                  -> 20 LM iterations over the two-keyframe map of
                                  a monocular initialization, the first fixed
@@ -22,6 +22,15 @@ After mapping, each keyframe goes to `loop_closer.insert_keyframe` when one is
 set (models/loop_closing, the lazy vocabulary trainer or the place-recognition
 registrar of models/system); `paused` (localization mode) skips mapping and
 the hand-off alike.
+
+The interruption hooks of the reference's LocalMapping thread serve the
+async pipeline (models/async_pipeline, which runs this stage on a worker):
+`abort_ba` (mbAbortBA) is raised by a new keyframe's insertion and by
+`interrupt_ba()`, and stops the local BA after its first phase;
+`pending_check` (set by AsyncMapping: more keyframes queued) defers fuse,
+local BA and keyframe culling, the CheckNewKeyFrames() gates of the
+reference's Run loop. In the synchronous pipeline neither ever fires.
+`tracer` (utils/tracing) records the JAX package's spans.
 
 Device work runs on the map's device; host bookkeeping stays numpy. The JAX
 package pads every array to a power-of-two size so XLA compiles each shape
@@ -41,6 +50,7 @@ from orbslam2commentedbyxcm_tpu_torch.models.tracking import project_and_match
 from orbslam2commentedbyxcm_tpu_torch.ops import matching, optim
 from orbslam2commentedbyxcm_tpu_torch.ops.twoview import triangulate
 from orbslam2commentedbyxcm_tpu_torch.utils.camera import Camera
+from orbslam2commentedbyxcm_tpu_torch.utils.tracing import span
 
 
 def _homogeneous(uv: torch.Tensor) -> torch.Tensor:
@@ -174,10 +184,26 @@ class LocalMapping:
         self.paused = False
         self.n_tri_neighbors = n_triangulation_neighbors
         self.recent_points: list[tuple[int, int]] = []  # (pid, created-at kf_id)
-        self.n_local_ba = 0  # local BA solves run so far
+        self.tracer = None
+        # == reference mbAbortBA (src/LocalMapping.cc:75): raised by a new
+        # keyframe's insertion or interrupt_ba(); the local BA polls it
+        # between its phases
+        self.abort_ba = False
+        # set by AsyncMapping: "more keyframes are queued" (CheckNewKeyFrames)
+        self.pending_check = None
+        self.n_local_ba = 0      # local BA solves run so far
+        self.n_ba_aborted = 0    # of those, stopped after their first phase
+        self.n_ba_deferred = 0   # keyframes whose BA was skipped for newer ones
 
     def _tensor(self, a, dtype=None):
         return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(self.map.device)
+
+    def interrupt_ba(self):
+        """== reference LocalMapping::InterruptBA (src/Tracking.cc:1168)."""
+        self.abort_ba = True
+
+    def _more_pending(self) -> bool:
+        return self.pending_check is not None and self.pending_check()
 
     # -- entry point -------------------------------------------------------
 
@@ -194,14 +220,31 @@ class LocalMapping:
         if self.paused:
             return
         kf = self.map.keyframes[kf_id]
-        self._track_recent_points(kf)
-        self.cull_map_points(kf)
-        self.create_new_map_points(kf)
-        self.fuse_neighbors(kf)
-        self.local_bundle_adjustment(kf)
-        self.cull_keyframes(kf)
+        if kf.bad:
+            # culled while it waited in the async queue (tracking links a new
+            # keyframe into the covisibility graph at once, so an older
+            # keyframe's culling can reach it); the JAX worker maps it anyway
+            return
+        with span(self.tracer, "local_mapping"):
+            self._track_recent_points(kf)
+            self.cull_map_points(kf)
+            self.create_new_map_points(kf)
+            # reference Run loop (src/LocalMapping.cc:63-82): fuse, local BA
+            # and culling wait while newer keyframes are queued, so the worker
+            # catches up first; mbAbortBA resets before the BA
+            if not self._more_pending():
+                self.fuse_neighbors(kf)
+            self.abort_ba = False
+            if self._more_pending():
+                self.n_ba_deferred += 1
+            else:
+                with span(self.tracer, "local_ba"):
+                    self.local_bundle_adjustment(kf)
+                with span(self.tracer, "map_host_cull"):
+                    self.cull_keyframes(kf)
         if self.loop_closer is not None:
-            self.loop_closer.insert_keyframe(kf_id)
+            with span(self.tracer, "loop_closing"):
+                self.loop_closer.insert_keyframe(kf_id)
 
     # -- recent-point culling ---------------------------------------------
 
@@ -264,34 +307,38 @@ class LocalMapping:
             return self._tensor(np.stack([get(nb) for nb in nbs]), dtype)
 
         free_kf = (kf.map_pt < 0) & kf.valid
-        best, ok, pts, good = mapping_triangulate_fused(
-            self._tensor(kf.desc.view(np.int32)), self._tensor(kf.uv_und), self._tensor(free_kf),
-            self._tensor(kf.t_cw), self._tensor(kf.u_right), self._tensor(kf.depth),
-            self._tensor(sigma2[kf.level], np.float32),
-            self._tensor(kf.scale_factor ** kf.level, np.float32),
-            stack(lambda nb: nb.desc.view(np.int32), None), stack(lambda nb: nb.uv_und, np.float32),
-            stack(lambda nb: nb.level, np.int32), stack(lambda nb: (nb.map_pt < 0) & nb.valid, None),
-            self._tensor(np.stack(f12s)), stack(lambda nb: sigma2[nb.level], np.float32),
-            self._tensor(np.stack(epipoles)), stack(lambda nb: nb.t_cw, np.float32),
-            stack(lambda nb: nb.u_right, np.float32), stack(lambda nb: nb.depth, np.float32),
-            self._tensor(kinv, np.float32), float(kf.scale_factor), float(matching.TH_LOW),
-            cam.fx, cam.fy, cam.cx, cam.cy, cam.bf, cam.b,
-        )
-        best, pts, good = (t.cpu().numpy() for t in (best, pts, good))
+        with span(self.tracer, "map_device"):
+            best, ok, pts, good = mapping_triangulate_fused(
+                self._tensor(kf.desc.view(np.int32)), self._tensor(kf.uv_und), self._tensor(free_kf),
+                self._tensor(kf.t_cw), self._tensor(kf.u_right), self._tensor(kf.depth),
+                self._tensor(sigma2[kf.level], np.float32),
+                self._tensor(kf.scale_factor ** kf.level, np.float32),
+                stack(lambda nb: nb.desc.view(np.int32), None), stack(lambda nb: nb.uv_und, np.float32),
+                stack(lambda nb: nb.level, np.int32), stack(lambda nb: (nb.map_pt < 0) & nb.valid, None),
+                self._tensor(np.stack(f12s)), stack(lambda nb: sigma2[nb.level], np.float32),
+                self._tensor(np.stack(epipoles)), stack(lambda nb: nb.t_cw, np.float32),
+                stack(lambda nb: nb.u_right, np.float32), stack(lambda nb: nb.depth, np.float32),
+                self._tensor(kinv, np.float32), float(kf.scale_factor), float(matching.TH_LOW),
+                cam.fx, cam.fy, cam.cx, cam.cy, cam.bf, cam.b,
+            )
+            best, pts, good = (t.cpu().numpy() for t in (best, pts, good))
         created = []
-        for b, nb in enumerate(nbs):
-            for i in np.nonzero(good[b])[0]:
-                if kf.map_pt[i] >= 0 or nb.map_pt[best[b, i]] >= 0:
-                    continue  # taken earlier in this batch
-                pid = self.map.add_point(pts[b, i], kf.desc[i], kf.kf_id)
-                self.map.add_observation(pid, kf.kf_id, int(i))
-                self.map.add_observation(pid, nb.kf_id, int(best[b, i]))
-                self.recent_points.append((pid, kf.kf_id))
-                created.append(pid)
+        with span(self.tracer, "map_host_create"):
+            for b, nb in enumerate(nbs):
+                for i in np.nonzero(good[b])[0]:
+                    if kf.map_pt[i] >= 0 or nb.map_pt[best[b, i]] >= 0:
+                        continue  # taken earlier in this batch
+                    pid = self.map.add_point(pts[b, i], kf.desc[i], kf.kf_id)
+                    self.map.add_observation(pid, kf.kf_id, int(i))
+                    self.map.add_observation(pid, nb.kf_id, int(best[b, i]))
+                    self.recent_points.append((pid, kf.kf_id))
+                    created.append(pid)
         if created:
-            self.map.update_point_descriptors_batch(created)
-            self.map.update_points_batch(created)
-        self.map.update_connections(kf)
+            with span(self.tracer, "map_host_ptbatch"):
+                self.map.update_point_descriptors_batch(created)
+                self.map.update_points_batch(created)
+        with span(self.tracer, "map_host_connections"):
+            self.map.update_connections(kf)
 
     def _scene_median_depth(self, kf: KeyFrame) -> float:
         """KeyFrame::ComputeSceneMedianDepth (src/KeyFrame.cc:682)."""
@@ -308,53 +355,57 @@ class LocalMapping:
         src/ORBmatcher.cc:1067): a feature that already observes another point
         -> replace the point with fewer observations; a free feature -> add
         the observation. Points that gained one are appended to `touched`."""
-        m = self.map
         feat = np.nonzero(ok)[0]
-        pid = pids[best_pt[feat]]
-        keep = m.pt_valid[pid]
-        feat, pid = feat[keep], pid[keep]
-        existing = target.map_pt[feat]
-        has_existing = (existing >= 0) & m.pt_valid[np.maximum(existing, 0)]
-        # conflicts, sequentially: an earlier replace may invalidate a later pid
-        for p, ex in zip(pid[has_existing], existing[has_existing]):
-            p, ex = int(p), int(ex)
-            if p == ex or not m.pt_valid[p] or not m.pt_valid[ex]:
-                continue
-            if m.n_observations(ex) >= m.n_observations(p):
-                m.replace_point(p, ex)
-            else:
-                m.replace_point(ex, p)
-        # free features (re-check: a replace above may have re-pointed the slot)
-        for f, p in zip(feat[~has_existing], pid[~has_existing]):
-            p = int(p)
-            now = int(target.map_pt[f])
-            if now >= 0 and m.pt_valid[now]:
-                continue
-            if not m.pt_valid[p] or target.kf_id in m.obs.get(p, ()):
-                continue
-            m.add_observation(p, target.kf_id, int(f))
-            touched.append(p)
+        if len(feat) == 0:
+            return
+        with span(self.tracer, "map_host_merge"):
+            m = self.map
+            pid = pids[best_pt[feat]]
+            keep = m.pt_valid[pid]
+            feat, pid = feat[keep], pid[keep]
+            existing = target.map_pt[feat]
+            has_existing = (existing >= 0) & m.pt_valid[np.maximum(existing, 0)]
+            # conflicts, sequentially: an earlier replace may invalidate a later pid
+            for p, ex in zip(pid[has_existing], existing[has_existing]):
+                p, ex = int(p), int(ex)
+                if p == ex or not m.pt_valid[p] or not m.pt_valid[ex]:
+                    continue
+                if m.n_observations(ex) >= m.n_observations(p):
+                    m.replace_point(p, ex)
+                else:
+                    m.replace_point(ex, p)
+            # free features (re-check: a replace above may have re-pointed the slot)
+            for f, p in zip(feat[~has_existing], pid[~has_existing]):
+                p = int(p)
+                now = int(target.map_pt[f])
+                if now >= 0 and m.pt_valid[now]:
+                    continue
+                if not m.pt_valid[p] or target.kf_id in m.obs.get(p, ()):
+                    continue
+                m.add_observation(p, target.kf_id, int(f))
+                touched.append(p)
 
     def _search(self, pids: np.ndarray, targets: list[KeyFrame]):
         """project_and_match of points `pids` into `targets` (a leading target
         dim) -> numpy (best_pt (B, N), ok (B, N))."""
-        cam = self.camera
         t0 = targets[0]
         if any(t.n_levels != t0.n_levels or t.scale_factor != t0.scale_factor for t in targets):
             raise ValueError("fuse targets must share one extractor pyramid config")
+        cam = self.camera
 
         def stack(name, dtype=None):
             return self._tensor(np.stack([getattr(t, name) for t in targets]), dtype)
 
-        best_pt, _, ok, _ = project_and_match(
-            *self.map.pack_points(pids, len(pids)),
-            stack("t_cw", np.float32), stack("uv_und", np.float32),
-            self._tensor(np.stack([t.desc for t in targets]).view(np.int32)),
-            stack("level", np.int32), stack("valid"),
-            cam.fx, cam.fy, cam.cx, cam.cy, float(cam.width), float(cam.height),
-            3.0, float(matching.TH_LOW), math.log(t0.scale_factor), t0.n_levels,
-        )
-        return best_pt.cpu().numpy(), ok.cpu().numpy()
+        with span(self.tracer, "map_device"):
+            best_pt, _, ok, _ = project_and_match(
+                *self.map.pack_points(pids, len(pids)),
+                stack("t_cw", np.float32), stack("uv_und", np.float32),
+                self._tensor(np.stack([t.desc for t in targets]).view(np.int32)),
+                stack("level", np.int32), stack("valid"),
+                cam.fx, cam.fy, cam.cx, cam.cy, float(cam.width), float(cam.height),
+                3.0, float(matching.TH_LOW), math.log(t0.scale_factor), t0.n_levels,
+            )
+            return best_pt.cpu().numpy(), ok.cpu().numpy()
 
     def fuse_neighbors(self, kf: KeyFrame):
         """SearchInNeighbors (src/LocalMapping.cc:506-603): project-and-fuse
@@ -382,9 +433,11 @@ class LocalMapping:
             best_pt, ok = self._search(nb_pids, [kf])
             self._merge_matches(kf, nb_pids, best_pt[0], ok[0], touched)
         if touched:
-            self.map.update_point_descriptors_batch(touched)
-            self.map.update_points_batch(touched)
-        self.map.update_connections(kf)
+            with span(self.tracer, "map_host_ptbatch"):
+                self.map.update_point_descriptors_batch(touched)
+                self.map.update_points_batch(touched)
+        with span(self.tracer, "map_host_connections"):
+            self.map.update_connections(kf)
 
     # -- keyframe culling --------------------------------------------------
 
@@ -420,16 +473,31 @@ class LocalMapping:
 
     def local_bundle_adjustment(self, kf: KeyFrame):
         """BA over kf + its covisible keyframes and their points, with the
-        second ring fixed (reference LocalBundleAdjustment)."""
+        second ring fixed (reference LocalBundleAdjustment). The abort flag is
+        polled between LOCAL_BA_SCHEDULE's phases, as the reference checks
+        pbStopFlag between its 5- and 10-iteration optimizes
+        (src/Optimizer.cc:720-737); write-back and outlier erasure run on the
+        partial result, as its recovery section does."""
         m = self.map
         local_set = [i for i in dict.fromkeys([kf.kf_id] + kf.best_covisible())
                      if i in m.keyframes and not m.keyframes[i].bad]
-        problem = assemble_ba_problem(m, local_set)
+        with span(self.tracer, "map_host_assemble"):
+            problem = assemble_ba_problem(m, local_set)
         if problem is None:
             return
-        res = solve_ba_problem(problem, self.camera, m.device)
+        phases = []
+
+        def abort_check():
+            phases.append(self.abort_ba)
+            return self.abort_ba
+
+        with span(self.tracer, "map_device"):
+            res = solve_ba_problem(problem, self.camera, m.device, abort_check=abort_check)
+            out = (res.poses.cpu().numpy(), res.points.cpu().numpy(), res.obs_inliers.cpu().numpy())
         self.n_local_ba += 1
-        write_back_ba(m, problem, res)
+        self.n_ba_aborted += int(any(phases))
+        with span(self.tracer, "map_host_writeback"):
+            write_back_ba(m, problem, res, out)
 
 
 def assemble_ba_problem(m: Map, local_set, fixed_ids=None):
@@ -494,8 +562,8 @@ def solve_ba_problem(problem, cam: Camera, device, schedule=LOCAL_BA_SCHEDULE, a
     phases are skipped and the partial result returned (g2o's force-stop,
     the reference's mbAbortBA / mbStopGBA). The next phase starts from the
     relabeled inliers, relabeled against the full mask as in one call.
-    The synchronous local mapping has no caller that could set such a flag
-    mid-solve; global BA (models/gba) polls its stop event."""
+    Local BA polls its abort flag (mbAbortBA), global BA (models/gba) its
+    stop event."""
     t = {k: torch.from_numpy(problem[k]).to(device)
          for k in ("poses", "pose_fixed", "points", "point_valid", "op", "opt", "ouv", "omask", "osig")}
     intr = (cam.fx, cam.fy, cam.cx, cam.cy, cam.bf)
@@ -516,18 +584,19 @@ def solve_ba_problem(problem, cam: Camera, device, schedule=LOCAL_BA_SCHEDULE, a
     return res
 
 
-def write_back_ba(m: Map, problem, res):
+def write_back_ba(m: Map, problem, res, host=None):
     """Optimized poses/points into the map, outlier observations erased
-    (reference LocalBundleAdjustment recovery, :816-855)."""
-    out_poses = res.poses.cpu().numpy()
-    inl = res.obs_inliers.cpu().numpy()
+    (reference LocalBundleAdjustment recovery, :816-855). `host` is the
+    result already read to numpy (poses, points, inliers)."""
+    out_poses, out_points, inl = host or (res.poses.cpu().numpy(), res.points.cpu().numpy(),
+                                          res.obs_inliers.cpu().numpy())
     pids = problem["pids"]
     for kf_id, s in problem["kf_slot"].items():
         if not problem["pose_fixed"][s]:
             kf = m.keyframes.get(kf_id)
             if kf is not None:
                 kf.set_pose(out_poses[s])
-    m.pt_xyz[pids] = res.points.cpu().numpy()
+    m.pt_xyz[pids] = out_points
     m.pt_version += 1  # direct pt_xyz write: invalidates tracking's pack cache
     for e in np.nonzero(~inl)[0]:
         m.erase_observation(int(problem["obs_pid"][e]), int(problem["obs_kf"][e]))

@@ -23,6 +23,16 @@ bookkeeping and the graph edges. The JAX package pads every batch to a
 power-of-two size for XLA; here the arrays have their true sizes, and a
 candidate batch is padded only to its longest member.
 
+A keyframe goes through three phases, as in the JAX package:
+`detect_candidates`, `try_close` (the batched matching, RANSAC, growth and
+refinement: the expensive part, almost always a rejection) and `finalize`
+(the guided gate, the correction, the database registration).
+`process_prepared` runs them back to back; the async pipeline's loop worker
+(models/async_pipeline) runs `try_close` without the map lock on a
+`snapshot_for_closure` (frozen copies of what it reads, `_MapView` /
+`_KFView`) taken under the lock, so the mapping worker can change the map
+meanwhile.
+
 `last_split` holds the host-clock seconds of the pieces of the last
 processed keyframe (each piece ends in a host read), `closure_splits` those
 of every keyframe that closed a loop, with the essential graph's size and LM
@@ -57,6 +67,34 @@ def _sim3_to_se3(m: np.ndarray) -> np.ndarray:
 def _sim3_of(kf) -> np.ndarray:
     """A keyframe's SE3 pose as a scale-1 Sim3 (the 4x4 itself)."""
     return np.asarray(kf.t_cw, np.float32)
+
+
+class _MapView:
+    """Frozen copies of the point arrays the Sim3 phase reads, taken under the
+    map lock; the mapping worker goes on changing the live arrays while
+    `try_close` runs on these."""
+
+    def __init__(self, m):
+        n = m.n_points
+        self.pt_xyz = m.pt_xyz[:n].copy()
+        self.pt_valid = m.pt_valid[:n].copy()
+        self.pt_desc = m.pt_desc[:n].copy()
+        self.pt_dmax = m.pt_dmax[:n].copy()
+
+
+class _KFView:
+    """A keyframe with frozen copies of `map_pt` and `t_cw`; its feature
+    arrays (uv, descriptors, levels, BoW nodes), which never change, pass
+    through to the live keyframe."""
+
+    def __init__(self, kf):
+        self._kf = kf
+        self.kf_id = kf.kf_id
+        self.map_pt = kf.map_pt.copy()
+        self.t_cw = kf.t_cw.copy()
+
+    def __getattr__(self, k):
+        return getattr(self._kf, k)
 
 
 def match_candidates(a_desc, a_nodes, c_desc, c_nodes, c_valid, use_bow, max_dist=matching.TH_LOW,
@@ -121,37 +159,70 @@ class LoopClosing:
     # -- entry ---------------------------------------------------------------
 
     def insert_keyframe(self, kf_id: int):
-        t0 = time.perf_counter()
-        self.last_split = {}
         kf = self.prepare_keyframe(kf_id)
         if kf is not None:
-            self._lap("bow_transform", t0)
             self.process_prepared(kf)
 
     def prepare_keyframe(self, kf_id: int):
         """The keyframe's BoW vector and grouping nodes; None for an erased
-        keyframe or without a vocabulary / database."""
+        keyframe or without a vocabulary / database. Reads only the
+        keyframe's features, which never change: the loop worker runs it
+        without the map lock."""
+        t0 = time.perf_counter()
+        self.last_split = {}
         kf = self.map.keyframes.get(kf_id)
         if kf is None or kf.bad or self.voc is None or self.db is None:
             return None
         words, groups, weights = bow.transform(self.voc, kf.desc, kf.valid, device=self.device)
         kf.bow_vec = bow.bow_vector(words, weights, self.voc.n_words)
         kf.bow_feat_nodes = groups
+        self._lap("bow_transform", t0)
         return kf
 
     def process_prepared(self, kf: KeyFrame):
         """Detection, Sim3, correction, then the keyframe's registration in
-        the database."""
-        t0 = time.perf_counter()
-        candidates = self._detect_loop(kf)
-        self._lap("detect", t0)
-        found = self._compute_sim3_geom(kf, candidates) if candidates else None
+        the database, back to back on the live map."""
+        candidates = self.detect_candidates(kf)
+        found = self.try_close(kf, candidates) if candidates else None
         self.finalize(kf, found)
 
+    def detect_candidates(self, kf: KeyFrame) -> list[int]:
+        """Phase 1: the database query and the group consistency. Reads the
+        database and the covisibility graph, so it runs under the map lock."""
+        t0 = time.perf_counter()
+        out = self._detect_loop(kf)
+        self._lap("detect", t0)
+        return out
+
+    def snapshot_for_closure(self, kf: KeyFrame, candidates: list[int]):
+        """Consistent copies of all that `try_close` reads (call under the
+        map lock): (_MapView, _KFView of kf, {candidate id: _KFView})."""
+        t0 = time.perf_counter()
+        m = self.map
+        views = {c: _KFView(ck) for c in candidates if (ck := m.keyframes.get(c)) is not None and not ck.bad}
+        out = _MapView(m), _KFView(kf), views
+        self._lap("snapshot", t0)
+        return out
+
+    def try_close(self, kf: KeyFrame, candidates: list[int], snapshot=None):
+        """Phase 2: batched matching and Sim3 RANSAC over the candidates, then
+        growth and refinement per survivor, on the live map or on a snapshot
+        from `snapshot_for_closure` (then without the map lock, as the
+        reference runs ComputeSim3 outside the map mutex, which only
+        CorrectLoop takes, src/LoopClosing.cc:497). Returns the
+        [(cand_id, S_cur_corrected)] survivors in order, or None."""
+        if snapshot is None:
+            m = self.map
+            views = {c: ck for c in candidates if (ck := m.keyframes.get(c)) is not None and not ck.bad}
+            return self._compute_sim3_geom(m, kf, views, candidates)
+        mv, kfv, views = snapshot
+        return self._compute_sim3_geom(mv, kfv, views, candidates)
+
     def finalize(self, kf: KeyFrame, found) -> None:
-        """The guided >= 40 gate and the correction for the refined Sim3
-        survivors in order (a gate failure moves on to the next survivor,
-        src/LoopClosing.cc:236-439), then the database registration."""
+        """Phase 3, under the map lock: the guided >= 40 gate and the
+        correction for the refined Sim3 survivors in order (a gate failure
+        moves on to the next survivor, src/LoopClosing.cc:236-439), then the
+        database registration."""
         for cand_id, s_cur_corr in found or ():
             ckf = self.map.keyframes.get(cand_id)
             if ckf is None or ckf.bad or kf.bad:
@@ -204,11 +275,12 @@ class LoopClosing:
 
     # -- Sim3 ----------------------------------------------------------------
 
-    def _compute_sim3_geom(self, kf, candidates: list[int]):
+    def _compute_sim3_geom(self, m, kf, cand_views: dict, candidates: list[int]):
         """Batched KF <-> KF matching and Sim3 RANSAC over the candidates,
-        then SearchBySim3 growth and refinement per RANSAC survivor. Returns
-        the [(cand_id, S_cur_corrected)] survivors in order, or None."""
-        m = self.map
+        then SearchBySim3 growth and refinement per RANSAC survivor. `m` is
+        the live Map or a _MapView, `cand_views` maps candidate id -> its
+        keyframe or _KFView. Returns the [(cand_id, S_cur_corrected)]
+        survivors in order, or None."""
         my = None
         batch = []
         for cand_id in candidates[: self.CAND_CAP]:
@@ -216,8 +288,8 @@ class LoopClosing:
                 self.stats["cooldown_skip"] += 1
                 continue
             self.stats["sim3_tried"] += 1
-            ckf = m.keyframes.get(cand_id)
-            if ckf is None or ckf.bad:
+            ckf = cand_views.get(cand_id)
+            if ckf is None:
                 continue
             if my is None:
                 my = np.nonzero(kf.map_pt >= 0)[0]
@@ -272,7 +344,7 @@ class LoopClosing:
                 self.stats["ransac_fail"] += 1
                 self._sim3_cooldown[cand_id] = kf.kf_id + self.sim3_cooldown_kfs
                 continue
-            out = self._grow_and_refine(kf, ckf, cand_id, my, np.nonzero(ckf.map_pt >= 0)[0],
+            out = self._grow_and_refine(m, kf, ckf, cand_id, my, np.nonzero(ckf.map_pt >= 0)[0],
                                         my_feat, their_feat, s12_all[i], inliers_all[i], lvl_sig)
             if out is not None:
                 survivors.append(out)
@@ -310,12 +382,12 @@ class LoopClosing:
         idx, ok = idx.cpu().numpy(), ok.cpu().numpy()
         return [(idx[i], ok[i]) for i in range(c)]
 
-    def _grow_and_refine(self, kf, ckf, cand_id, my, their, my_feat, their_feat, s12, ransac_inliers, lvl_sig):
+    def _grow_and_refine(self, m, kf, ckf, cand_id, my, their, my_feat, their_feat, s12, ransac_inliers, lvl_sig):
         """SearchBySim3 growth + OptimizeSim3 for one RANSAC survivor
         (reference LoopClosing.cc:344-355) -> (cand_id, S_cur_corrected) or
         None (with the cooldown set)."""
-        m, cam = self.map, self.camera
-        new1, new2 = self._search_by_sim3(kf, ckf, s12, my, their, my_feat, their_feat)
+        cam = self.camera
+        new1, new2 = self._search_by_sim3(m, kf, ckf, s12, my, their, my_feat, their_feat)
         n0 = len(my_feat)
         if len(new1):
             my_feat, their_feat = np.concatenate([my_feat, new1]), np.concatenate([their_feat, new2])
@@ -339,11 +411,11 @@ class LoopClosing:
         # corrected current pose is S_cw = S12 T_candidate_cw
         return cand_id, ref.s12.cpu().numpy() @ _sim3_of(ckf)
 
-    def _search_by_sim3(self, kf, ckf, s12, my, their, my_feat, their_feat):
+    def _search_by_sim3(self, m, kf, ckf, s12, my, their, my_feat, their_feat):
         """ops/sim3solver.search_by_sim3 over the two keyframes' point-carrying
         rows -> the new mutually agreed pairs (feature indices into kf, ckf)
-        beyond the matched ones."""
-        m, cam = self.map, self.camera
+        beyond the matched ones; `m` is the live Map or a _MapView."""
+        cam = self.camera
 
         def pack(akf, rows, matched_rows):
             pids = akf.map_pt[rows]

@@ -36,7 +36,7 @@ _MINUS_ONE = ("pt_ref_kf", "pt_first_kf", "pt_replaced_by")
 
 
 class Map:
-    def __init__(self, point_capacity: int = 1 << 14, device="cpu"):
+    def __init__(self, device, point_capacity: int = 1 << 14):
         cap = point_capacity
         self.device = torch.device(device)  # where pack_points puts its tensors
         self.pt_xyz = np.zeros((cap, 3), np.float32)

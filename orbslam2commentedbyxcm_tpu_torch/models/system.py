@@ -1,33 +1,42 @@
 """System facade: the public entry point (reference include/System.h).
 
-Counterpart of orbslam2commentedbyxcm_tpu/models/system.py for synchronous
-monocular, stereo and RGB-D SLAM: extractor -> Tracking -> LocalMapping ->
-LoopClosing, run in the caller's thread on the torch device the System is
-given, with global BA on a transient worker thread. Frames go in through
-`track_monocular` / `track_rgbd` / `track_stereo`, which return the (4, 4)
-float32 pose Tcw or None when the frame was not tracked.
+Counterpart of orbslam2commentedbyxcm_tpu/models/system.py for monocular,
+stereo and RGB-D SLAM: extractor -> Tracking -> LocalMapping -> LoopClosing
+on the torch device the System is given, with global BA on a transient
+worker thread. Frames go in through `track_monocular` / `track_rgbd` /
+`track_stereo`, which return the (4, 4) float32 pose Tcw or None when the
+frame was not tracked.
 
     system = System(camera, Sensor.RGBD, vocabulary="bootstrap", device="cuda")
     t_cw = system.track_rgbd(image, depth, timestamp)
+    system.shutdown()
+
+By default mapping and loop closing run in the caller's thread, inside the
+frame that made the keyframe. With `async_mapping=True` they run on two
+worker threads (models/async_pipeline, the reference's LocalMapping and
+LoopClosing threads): the keyframe frame returns once the keyframe is
+queued, and `shutdown()` drains and joins the workers (call it, or
+`frame_trajectory()` / `save_map`, before reading the map). `tracer=` (a
+utils/tracing Tracer) records the extraction, tracking and mapping spans of
+every frame.
 
 With a vocabulary ("bootstrap" or an ops/bow Vocabulary) keyframes are
 registered in a BoW keyframe database, the reference-keyframe stage tries a
 BoW search first, a lost tracker relocalizes (models/relocalization) and,
 with `enable_loop_closing`, loops are detected and closed
 (models/loop_closing; the Sim3 is fixed-scale except for monocular). With
-`vocabulary=None` and loop closing on, a small vocabulary is trained from
-the map's own descriptors once it holds 5 keyframes (`_LazyVocabTrainer`),
-then the same stack is wired. With neither, there is no place recognition
-(the JAX package trains the vocabulary then too, for relocalization alone:
-ROADMAP.md Queue 3). `map_lock` (Map::mMutexMapUpdate) is held around
-tracking and by global BA's write-back. `save_map` / `load_map` checkpoint
-the map in the JAX package's npz format; a loaded System comes up LOST and
-relocalizes. `activate_localization_mode` freezes the map and tracks with
-the visual-odometry fallback.
+`vocabulary=None` a small vocabulary is trained from the map's own
+descriptors once it holds 5 keyframes (`_LazyVocabTrainer`), then the same
+stack is wired (with loop closing off, the database alone, for
+relocalization). `map_lock` (Map::mMutexMapUpdate) is held around tracking,
+by the mapping worker, by the loop worker's detection and correction and by
+global BA's write-back. `save_map` / `load_map` checkpoint the map in the
+JAX package's npz format; a loaded System comes up LOST and relocalizes.
+`activate_localization_mode` freezes the map and tracks with the
+visual-odometry fallback.
 
-Options that belong to later slices raise NotImplementedError naming their
-ROADMAP.md Queue 1 item: the async pipeline, the tracer and the multi-device
-mesh.
+The multi-device mesh belongs to a later slice and raises
+NotImplementedError naming its ROADMAP.md Queue 1 item.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ import threading
 import numpy as np
 import torch
 
+from orbslam2commentedbyxcm_tpu_torch.models.async_pipeline import AsyncLoopClosing, AsyncMapping
 from orbslam2commentedbyxcm_tpu_torch.models.frame import Frame, rgbd_observations
 from orbslam2commentedbyxcm_tpu_torch.models.keyframe_database import KeyFrameDatabase
 from orbslam2commentedbyxcm_tpu_torch.models.local_mapping import LocalMapping
@@ -52,6 +62,7 @@ from orbslam2commentedbyxcm_tpu_torch.ops.orb import ORBExtractor
 from orbslam2commentedbyxcm_tpu_torch.ops.stereo import stereo_match_frame
 from orbslam2commentedbyxcm_tpu_torch.utils.camera import Camera
 from orbslam2commentedbyxcm_tpu_torch.utils.geometry import rot_to_quat
+from orbslam2commentedbyxcm_tpu_torch.utils.tracing import span
 
 
 class Sensor(enum.Enum):
@@ -67,7 +78,8 @@ def _not_ported(what: str, item: int):
 class _LazyVocabTrainer:
     """The mapper's loop_closer hand-off until a vocabulary exists: once the
     map holds 5 good keyframes it trains one from their descriptors and
-    passes the keyframe on to the place-recognition stack it wired."""
+    passes the keyframe on to the place-recognition stack it wired (the loop
+    closer, or with loop closing off the database registrar)."""
 
     def __init__(self, system):
         self.system = system
@@ -113,18 +125,15 @@ class System:
         init_feature_boost: float = 2.0,  # monocular initialization only
         device="cuda",
     ):
-        if async_mapping:
-            _not_ported("the async mapping pipeline", 10)
-        if tracer is not None:
-            _not_ported("the tracer", 10)
         if mesh is not None:
-            _not_ported("the multi-device mesh", 11)
+            _not_ported("the multi-device mesh", 6)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("System(device='cuda'): no CUDA device is available")
         self.camera = camera
         self.sensor = sensor
         self.cfg = config or TrackingConfig()
+        self.tracer = tracer
         self.map = Map(device=self.device)
         # pre-reset trajectory segments, materialized as absolute poses
         self._archived_trajectory: list = []
@@ -148,12 +157,18 @@ class System:
                 normalize_exposure=self.cfg.normalize_exposure,
                 exposure_target_mad=self.cfg.exposure_target_mad,
             )
-        # Map::mMutexMapUpdate: held around tracking (which runs mapping and
-        # loop closing synchronously) and by global BA's write-back
+        # Map::mMutexMapUpdate: held around tracking (which, synchronously,
+        # runs mapping and loop closing too), by the async workers and by
+        # global BA's write-back
         self.map_lock = threading.Lock()
         self.local_mapping = LocalMapping(self.map, camera)
+        self.local_mapping.tracer = tracer
+        if async_mapping:
+            self.local_mapping = AsyncMapping(self.local_mapping, self.map_lock)
+        self._loop_worker: AsyncLoopClosing | None = None
         self.tracking = Tracking(camera, self.map, self.local_mapping, self.cfg,
                                  std_capacity=self.extractor.capacity)
+        self.tracking.tracer = tracer
         if vocabulary == "bootstrap":
             vocabulary = bow.bootstrap_vocabulary()
         self.vocabulary = vocabulary
@@ -162,7 +177,9 @@ class System:
         self._enable_loop_closing = enable_loop_closing
         if vocabulary is not None:
             self._wire_place_recognition()
-        elif enable_loop_closing:
+        else:
+            # a vocabulary trained from the map's own descriptors once it is
+            # big enough (the reference loads ORBvoc.txt, trained offline)
             self.local_mapping.loop_closer = _LazyVocabTrainer(self)
 
     def _wire_place_recognition(self):
@@ -171,9 +188,18 @@ class System:
         registrar) as the mapper's hand-off, the relocalizer, and the
         tracker's vocabulary. The tree is uploaded to the System's device
         here, once. Re-wiring (lazy training, load_map) stops the replaced
-        stack's global BA first: a stale solve must not write back later."""
+        stack's global BA first: a stale solve must not write back later. In
+        the async pipeline the loop closer gets its own worker, and the
+        replaced one is retired."""
         if self.loop_closing is not None:
             self.loop_closing.gba.abort()
+        if self._loop_worker is not None:
+            # load_map, from the caller's thread after the drain; the lazy
+            # trainer re-wires from the mapping worker, while the map lock is
+            # held, but only once and before any loop worker exists (joining
+            # one from there could wait for that lock)
+            self._loop_worker.shutdown()
+            self._loop_worker = None
         self.vocabulary.device_tree(self.device)
         self.keyframe_db = KeyFrameDatabase(self.vocabulary)
         self.map.erase_hooks.append(self.keyframe_db.erase)
@@ -181,7 +207,12 @@ class System:
             self.loop_closing = LoopClosing(self.map, self.camera, keyframe_db=self.keyframe_db,
                                             vocabulary=self.vocabulary, fix_scale=self.sensor != Sensor.MONOCULAR,
                                             map_lock=self.map_lock, device=self.device)
-            self.local_mapping.loop_closer = self.loop_closing
+            if isinstance(self.local_mapping, AsyncMapping):
+                # reference: LoopClosing on its own thread (src/System.cc:105-111)
+                self._loop_worker = AsyncLoopClosing(self.loop_closing, self.map_lock)
+                self.local_mapping.loop_closer = self._loop_worker
+            else:
+                self.local_mapping.loop_closer = self.loop_closing
         else:
             self.local_mapping.loop_closer = _DbOnlyRegistrar(self)
         self.local_mapping.relocalizer = Relocalizer(self.map, self.camera, keyframe_db=self.keyframe_db,
@@ -229,9 +260,15 @@ class System:
             frame.uv_und = self.camera.undistort_points(frame.feats.uv).cpu().numpy()
         return frame
 
+    def _begin_frame(self, timestamp: float):
+        if self.tracer is not None:
+            self.tracer.begin_frame(Frame._next_id, timestamp)
+
     def _track_locked(self, frame: Frame):
-        with self.map_lock:
+        with span(self.tracer, "tracking"), self.map_lock:
             state = self.tracking.track_frame(frame)
+        if self.tracer is not None:
+            self.tracer.end_frame(state=self.tracking.state.name, inliers=self.tracking.n_last_inliers)
         # lost right after initialization: the young map is too small to
         # recover from, so reset (reference src/Tracking.cc:518-525)
         if (state == TrackingState.LOST and not self.tracking.localization_only
@@ -243,7 +280,9 @@ class System:
         """-> Tcw (4, 4) float32, or None if the frame was not tracked."""
         if self.sensor != Sensor.MONOCULAR:
             raise ValueError(f"track_monocular on a {self.sensor.name} system")
-        frame = self._make_frame(self._image(image), timestamp)
+        self._begin_frame(timestamp)
+        with span(self.tracer, "extract"):
+            frame = self._make_frame(self._image(image), timestamp)
         state = self._track_locked(frame)
         return frame.t_cw.copy() if state == TrackingState.OK else None
 
@@ -251,8 +290,10 @@ class System:
         """-> Tcw (4, 4) float32, or None if the frame was not tracked."""
         if self.sensor != Sensor.RGBD:
             raise ValueError(f"track_rgbd on a {self.sensor.name} system")
-        frame = self._make_frame(self._image(image), timestamp)
-        self._attach_depth(frame, depth)
+        self._begin_frame(timestamp)
+        with span(self.tracer, "extract"):
+            frame = self._make_frame(self._image(image), timestamp)
+            self._attach_depth(frame, depth)
         state = self._track_locked(frame)
         return frame.t_cw.copy() if state == TrackingState.OK else None
 
@@ -260,9 +301,12 @@ class System:
         """Rectified stereo pair -> Tcw (4, 4) float32, or None."""
         if self.sensor != Sensor.STEREO:
             raise ValueError(f"track_stereo on a {self.sensor.name} system")
+        self._begin_frame(timestamp)
         left = self._image(image_left)
-        frame = self._make_frame(left, timestamp)
-        stereo_match_frame(frame, left, self._image(image_right), self.extractor, self.camera)
+        with span(self.tracer, "extract"):
+            frame = self._make_frame(left, timestamp)
+        with span(self.tracer, "stereo_match"):
+            stereo_match_frame(frame, left, self._image(image_right), self.extractor, self.camera)
         state = self._track_locked(frame)
         return frame.t_cw.copy() if state == TrackingState.OK else None
 
@@ -284,9 +328,30 @@ class System:
         return None if self.loop_closing is None else self.loop_closing.gba
 
     def _drain_mapping(self):
-        """Wait for a running global BA (and raise what it raised)."""
-        if self._gba() is not None:
-            self._gba().wait()
+        """Wait for the mapping queue, then the loop queue, then a running
+        global BA, and raise the first thing any of them raised. Never call
+        it holding map_lock: the workers and global BA's write-back take it."""
+        def waits():  # each looked up in its turn: the mapping queue's lazy
+            # trainer may start the loop worker and global BA meanwhile
+            yield getattr(self.local_mapping, "wait_idle", None)
+            yield None if self._loop_worker is None else self._loop_worker.wait_idle
+            yield None if self._gba() is None else self._gba().wait
+
+        self._run_all(waits())
+
+    @staticmethod
+    def _run_all(calls):
+        """Call each of `calls` (None skipped) even after one raised; then
+        raise the first exception."""
+        errors = []
+        for call in calls:
+            if call is not None:
+                try:
+                    call()
+                except Exception as exc:
+                    errors.append(exc)
+        if errors:
+            raise errors[0]
 
     def reset(self):
         if self._gba() is not None:
@@ -323,9 +388,15 @@ class System:
             self.loop_closing.gba.map = m
 
     def shutdown(self):
-        """Wait for a running global BA; the synchronous pipeline has no
-        other worker to join."""
-        self._drain_mapping()
+        """Drain the queues and global BA, then end and join the async
+        workers (reference System::Shutdown); raise the first thing a worker
+        or global BA raised."""
+        def stops():  # the loop worker looked up after the drain, which may start it
+            yield self._drain_mapping
+            yield getattr(self.local_mapping, "shutdown", None)
+            yield None if self._loop_worker is None else self._loop_worker.shutdown
+
+        self._run_all(stops())
 
     def activate_localization_mode(self):
         """Track against the frozen map: no keyframes, no mapping (reference
@@ -343,6 +414,7 @@ class System:
         """Swap the camera intrinsics in every consumer and drop the motion
         model, so the next frame re-anchors through the reference keyframe
         (reference Tracking::ChangeCalibration, src/Tracking.cc:1735-1764)."""
+        self._drain_mapping()
         self.camera = camera
         self.tracking.camera = camera
         self.local_mapping.camera = camera

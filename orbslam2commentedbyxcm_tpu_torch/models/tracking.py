@@ -43,6 +43,7 @@ from orbslam2commentedbyxcm_tpu_torch.models.map import Map
 from orbslam2commentedbyxcm_tpu_torch.ops import bow, matching, twoview
 from orbslam2commentedbyxcm_tpu_torch.ops.optim import pose_optimization
 from orbslam2commentedbyxcm_tpu_torch.utils.camera import Camera
+from orbslam2commentedbyxcm_tpu_torch.utils.tracing import span
 
 LOCAL_POINT_CAP = 4096
 
@@ -227,6 +228,8 @@ class Tracking:
         # extracted with a larger budget are compacted to it
         self.std_capacity = std_capacity
         self.vocabulary = None  # set by the System when place recognition is wired
+        self.tracer = None  # set by the System; "track_device" spans end in a host read
+        self.n_kf_deferred = 0  # keyframes the queue-cap gate deferred
 
         self.state = TrackingState.NOT_INITIALIZED
         self.last_frame: Frame | None = None
@@ -549,16 +552,17 @@ class Tracking:
         existing_xyz = np.zeros((frame.capacity, 3), np.float32)
         if existing_mask.any():
             existing_xyz[existing_mask] = self.map.pt_xyz[frame.map_pt[existing_mask]]
-        out = match_and_optimize_step(
-            *pack, torch.from_numpy(np.asarray(t_pred, np.float32)).to(dev),
-            fdev["uv_und"], fdev["desc"], fdev["level"], fdev["valid"],
-            torch.from_numpy(existing_mask).to(dev), torch.from_numpy(existing_xyz).to(dev),
-            fdev["obs"], fdev["inv_sigma2"],
-            cam.fx, cam.fy, cam.cx, cam.cy, float(cam.width), float(cam.height), cam.bf,
-            float(radius), float(max_dist), math.log(cfg.scale_factor), cfg.n_levels,
-            **angle_args,
-        )
-        best_pt, ok, visible, t_cw, inliers, n_inl = _to_numpy(*out)
+        with span(self.tracer, "track_device"):
+            out = match_and_optimize_step(
+                *pack, torch.from_numpy(np.asarray(t_pred, np.float32)).to(dev),
+                fdev["uv_und"], fdev["desc"], fdev["level"], fdev["valid"],
+                torch.from_numpy(existing_mask).to(dev), torch.from_numpy(existing_xyz).to(dev),
+                fdev["obs"], fdev["inv_sigma2"],
+                cam.fx, cam.fy, cam.cx, cam.cy, float(cam.width), float(cam.height), cam.bf,
+                float(radius), float(max_dist), math.log(cfg.scale_factor), cfg.n_levels,
+                **angle_args,
+            )
+            best_pt, ok, visible, t_cw, inliers, n_inl = _to_numpy(*out)
 
         matched_pid = np.where(ok, slot_to_pid[best_pt], -1)
         if keep_existing:
@@ -601,15 +605,16 @@ class Tracking:
         fdev = frame.device_arrays()
         dev = self.map.device
         t_pred = (self.velocity @ lf.t_cw).astype(np.float32)
-        out = fused_track_step(
-            *m_pack, torch.from_numpy(ang).to(dev), *l_pack,
-            torch.from_numpy(t_pred).to(dev), fdev["uv_und"], fdev["desc"],
-            fdev["level"], fdev["valid"], fdev["angle"], fdev["obs"], fdev["inv_sigma2"],
-            cam.fx, cam.fy, cam.cx, cam.cy, float(cam.width), float(cam.height), cam.bf,
-            float(cfg.motion_search_radius), float(cfg.localmap_search_radius),
-            float(matching.TH_HIGH), math.log(cfg.scale_factor), cfg.n_levels,
-        )
-        best1, exist, vis1, n1, best2, ok2, vis2, use, t_cw, inl2, n2 = _to_numpy(*out)
+        with span(self.tracer, "track_device"):
+            out = fused_track_step(
+                *m_pack, torch.from_numpy(ang).to(dev), *l_pack,
+                torch.from_numpy(t_pred).to(dev), fdev["uv_und"], fdev["desc"],
+                fdev["level"], fdev["valid"], fdev["angle"], fdev["obs"], fdev["inv_sigma2"],
+                cam.fx, cam.fy, cam.cx, cam.cy, float(cam.width), float(cam.height), cam.bf,
+                float(cfg.motion_search_radius), float(cfg.localmap_search_radius),
+                float(matching.TH_HIGH), math.log(cfg.scale_factor), cfg.n_levels,
+            )
+            best1, exist, vis1, n1, best2, ok2, vis2, use, t_cw, inl2, n2 = _to_numpy(*out)
         if int(n1) < 20:
             return False  # the staged path redoes motion with the widened retry
         self.n_last_inliers = int(n2)
@@ -786,8 +791,10 @@ class Tracking:
     # -- keyframe policy ---------------------------------------------------
 
     def _need_new_keyframe(self, frame: Frame) -> bool:
-        """Reference NeedNewKeyFrame (src/Tracking.cc:1088-1186); the
-        synchronous mapper always accepts."""
+        """Reference NeedNewKeyFrame (src/Tracking.cc:1088-1186). A mapper
+        with `accepts_keyframes()` (the async pipeline's AsyncMapping) that
+        refuses has its local BA interrupted, and the keyframe waits for a
+        later frame; the synchronous mapper always accepts."""
         cfg = self.cfg
         kf = self.map.keyframes.get(self.ref_kf_id)
         if kf is None:
@@ -819,7 +826,19 @@ class Tracking:
         c1b = self.frames_since_kf >= cfg.min_frames_between_kf
         c1c = is_depth and (inl < ref_matches * 0.25 or need_close)
         c2 = (inl < ref_matches * ratio or need_close) and inl > 15
-        return c1a or ((c1b or c1c) and c2)
+        if not (c1a or ((c1b or c1c) and c2)):
+            return False
+        # keyframe wanted: a busy mapper has its local BA interrupted and the
+        # keyframe is deferred (src/Tracking.cc:1160-1181: InterruptBA while
+        # local mapping is not idle, insert while the queue is short)
+        accepts = getattr(self.local_mapper, "accepts_keyframes", None)
+        if accepts is not None and not accepts():
+            interrupt = getattr(self.local_mapper, "interrupt_ba", None)
+            if interrupt is not None:
+                interrupt()
+            self.n_kf_deferred += 1
+            return False
+        return True
 
     def _create_new_keyframe(self, frame: Frame):
         kf = self.map.add_keyframe(frame)

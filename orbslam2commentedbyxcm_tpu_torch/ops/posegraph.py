@@ -259,11 +259,13 @@ def optimize_pose_graph_cg(
     return PoseGraphResult(poses=p, cost=err, iterations=it)
 
 
-# Above this many vertices the matrix-free solver is used: the dense path's
-# (7K)^2 Hessian and O(K^3) Cholesky grow past the CG path's O(E) work. The
-# value is the JAX package's, kept for parity; the port's own crossover is
-# measured by tools/posegraph_crossover.py (PERF.md).
-DENSE_VERTEX_LIMIT = 192
+# Above this many vertices the matrix-free solver is used. The JAX package
+# switches at 192 (its dense (7K)^2 Hessian and O(K^3) Cholesky outgrow the CG
+# path's O(E) work on the TPU). On an H100 the dense solve is 4.7-6.7x faster
+# than CG at every K from 32 to 1024, and CG stops short of the dense optimum
+# from K = 384 on (tools/posegraph_crossover.py, PERF.md), so the port stays
+# dense up to the largest K measured.
+DENSE_VERTEX_LIMIT = 1024
 
 
 def solve_pose_graph(poses, fixed, edge_i, edge_j, edge_meas, edge_mask,

@@ -1,4 +1,5 @@
-"""Trajectory evaluation: ATE RMSE after Umeyama alignment (numpy only).
+"""Trajectory evaluation: ATE RMSE after Umeyama alignment and the relative
+pose error (numpy only).
 
 Counterpart of orbslam2commentedbyxcm_tpu/utils/evaluation.py (the TUM
 benchmark's evaluate_ate conventions).
@@ -30,6 +31,18 @@ def ate_rmse(est_positions: np.ndarray, gt_positions: np.ndarray, with_scale: bo
     aligned = (s * (r @ est_positions.T)).T + t
     err = np.linalg.norm(aligned - gt_positions, axis=-1)
     return float(np.sqrt((err**2).mean()))
+
+
+def rpe(est_poses: np.ndarray, gt_poses: np.ndarray, delta: int = 1):
+    """Relative pose error over (N, 4, 4) Tcw arrays -> (trans_rmse, rot_rmse_rad)."""
+    terr, rerr = [], []
+    for i in range(len(est_poses) - delta):
+        de = np.linalg.inv(est_poses[i]) @ est_poses[i + delta]
+        dg = np.linalg.inv(gt_poses[i]) @ gt_poses[i + delta]
+        e = np.linalg.inv(dg) @ de
+        terr.append(np.linalg.norm(e[:3, 3]))
+        rerr.append(np.arccos(np.clip((np.trace(e[:3, :3]) - 1) / 2, -1, 1)))
+    return float(np.sqrt(np.mean(np.square(terr)))), float(np.sqrt(np.mean(np.square(rerr))))
 
 
 def positions_from_tcw(poses_tcw: np.ndarray) -> np.ndarray:

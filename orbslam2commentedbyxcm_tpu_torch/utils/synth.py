@@ -148,7 +148,16 @@ class SyntheticSequence:
 
 @dataclasses.dataclass
 class BoxSequence:
-    """Camera orbiting inside a textured box, looking outward."""
+    """Camera moving inside a textured box. Trajectories (the JAX package's):
+
+      orbit  circle looking outward (the default): the viewing direction turns
+             a full revolution, so the return is a genuine loop closure
+      line   straight run along +z looking forward, with a lateral weave
+      sway   oscillating partial orbit that revisits the same walls
+      eight  figure-eight over two tangent circles, forward-looking; the
+             re-entry into the first lobe comes after a full away-lobe, so
+             only place recognition can close it
+    """
 
     camera: Camera
     n_frames: int = 120
@@ -160,8 +169,8 @@ class BoxSequence:
     trajectory: str = "orbit"
 
     def __post_init__(self):
-        if self.trajectory != "orbit":
-            raise NotImplementedError(f"trajectory {self.trajectory!r}: only 'orbit' is ported")
+        if self.trajectory not in ("orbit", "line", "sway", "eight"):
+            raise ValueError(f"unknown trajectory {self.trajectory!r}")
         rng = np.random.default_rng(self.seed)
         h = self.half_size
         # walls: (center, e1 (u axis), e2 (v axis), texture); normals point inward
@@ -178,11 +187,42 @@ class BoxSequence:
         self.tex_scale = self.tex_size / (2 * h)
 
     def pose(self, i: int) -> np.ndarray:
-        """Ground-truth Tcw for frame i (circle looking outward, slight bob)."""
+        """Ground-truth Tcw for frame i."""
         t = i / max(self.n_frames - 1, 1)
-        theta = 2 * np.pi * self.turns * t
-        c = self.radius * np.array([np.sin(theta), 0.0, np.cos(theta)])
-        c[1] = 0.1 * np.sin(4 * np.pi * t)
+        if self.trajectory == "line":
+            # forward run toward the far wall, gentle lateral and heading weave
+            z0, z1 = -0.6 * self.half_size, 0.5 * self.half_size
+            c = np.array([0.25 * np.sin(4 * np.pi * t), 0.0, z0 + (z1 - z0) * t])
+            c[1] = 0.05 * np.sin(6 * np.pi * t)
+            theta = 0.08 * np.sin(3 * np.pi * t)
+        elif self.trajectory == "sway":
+            theta = (np.pi * self.turns) * np.sin(2 * np.pi * 2.5 * t)
+            c = self.radius * np.array([np.sin(theta), 0.0, np.cos(theta)])
+            c[1] = 0.15 * np.sin(5 * np.pi * t)
+        elif self.trajectory == "eight":
+            # lobe A (ccw), lobe B (cw, tangent at the origin), then 0.35 of a
+            # revolution back into lobe A
+            r = self.radius
+            srev = (2.0 + 0.35) * t
+            if srev < 1.0:
+                a = 2 * np.pi * srev
+                c2d = np.array([-r + r * np.cos(a), r * np.sin(a)])
+                theta = -a
+            elif srev < 2.0:
+                b = 2 * np.pi * (srev - 1.0)
+                c2d = np.array([r - r * np.cos(b), r * np.sin(b)])
+                theta = b
+            else:
+                a = 2 * np.pi * (srev - 2.0)
+                c2d = np.array([-r + r * np.cos(a), r * np.sin(a)])
+                theta = -a
+            c = np.array([c2d[0], 0.0, c2d[1]])
+            c[1] = 0.1 * np.sin(4 * np.pi * t)
+        else:  # orbit, with a slight vertical bob
+            theta = 2 * np.pi * self.turns * t
+            c = self.radius * np.array([np.sin(theta), 0.0, np.cos(theta)])
+            c[1] = 0.1 * np.sin(4 * np.pi * t)
+        # camera +z axis = (sin theta, 0, cos theta)
         cy, sy = np.cos(theta), np.sin(theta)
         r_wc = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]], np.float64)
         t_cw = np.eye(4, dtype=np.float32)

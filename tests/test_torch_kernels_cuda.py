@@ -277,3 +277,32 @@ def test_segment_sum_repeats_on_card(cuda_device):
         assert torch.equal(optim.segment_sum(values, index, 64), first)
     ref = torch.zeros(64, 7, 7, dtype=torch.float64).index_add_(0, index.cpu(), values.cpu().double())
     np.testing.assert_allclose(first.cpu().numpy(), ref.numpy(), atol=2e-3)
+
+
+def test_async_system_on_card(cuda_device):
+    """The async pipeline on the card: the mapping and loop workers launch
+    onto the default stream beside tracking; every frame is tracked, the
+    kernels run once per extraction, shutdown() joins both workers, and the
+    map holds as many keyframes as the synchronous run's (within 1)."""
+    from orbslam2commentedbyxcm_tpu_torch.models.system import Sensor, System
+    from orbslam2commentedbyxcm_tpu_torch.models.tracking import TrackingConfig
+    from orbslam2commentedbyxcm_tpu_torch.utils.camera import Camera
+    from orbslam2commentedbyxcm_tpu_torch.utils.synth import BoxSequence
+    from orbslam2commentedbyxcm_tpu_torch.utils.tracing import Tracer
+
+    cam = Camera(fx=250.0, fy=250.0, cx=160.0, cy=120.0, width=320, height=240, bf=20.0)
+    seq = BoxSequence(camera=cam, seed=5, n_frames=100, turns=0.35)
+    frames = [(seq.render(i), seq.depth_map(i)) for i in range(30)]
+    cfg = TrackingConfig(n_features=600, max_frames_between_kf=6)
+    kfs = []
+    for async_mapping in (False, True):
+        s = System(cam, Sensor.RGBD, config=cfg, async_mapping=async_mapping, tracer=Tracer(), device=cuda_device)
+        k1 = fk.fused_frontend_pyramid.launches
+        assert all(s.track_rgbd(img, depth, i / 30.0) is not None for i, (img, depth) in enumerate(frames))
+        assert fk.fused_frontend_pyramid.launches - k1 == len(frames)
+        s.shutdown()
+        kfs.append(len(s.map.good_keyframes()))
+    assert s.vocabulary is not None and not s.local_mapping._thread.is_alive()
+    assert not s._loop_worker._thread.is_alive()
+    assert abs(kfs[0] - kfs[1]) <= 1 and kfs[1] >= 4
+    assert s.tracer.stats()["spans"]["local_ba"]["n"] >= 3

@@ -184,3 +184,46 @@ def test_cull_keyframes(snaps, case):
     for k, kf in ref.keyframes.items():
         assert got.keyframes[k].parent == kf.parent and got.keyframes[k].covis == kf.covis
     assert got.obs == ref.obs
+
+
+@pytest.mark.parametrize("abort", [True, False])
+def test_interruptible_local_ba_matches_jax(snaps, abort, monkeypatch):
+    """The abort flag (mbAbortBA) polled between LOCAL_BA_SCHEDULE's phases:
+    raised before the local BA, the port's solve stops after its first
+    phase, as the JAX package's _run_ba does (one bundle_adjustment call in
+    each), and both write back the partial result; lowered, both run both
+    phases. The JAX stage runs on a port Map (it has the JAX Map's API), so
+    both start from the same state; the maps agree within the write-back
+    test's bars."""
+    import orbslam2commentedbyxcm_tpu.models.local_mapping as jlm_mod
+    import orbslam2commentedbyxcm_tpu_torch.models.local_mapping as tlm_mod
+
+    before, _ = snaps["local_bundle_adjustment"]
+    calls = {"jax": 0, "port": 0}
+    for mod, key in ((jlm_mod, "jax"), (tlm_mod, "port")):
+        ba = mod.optim.bundle_adjustment
+
+        def counted(*a, _ba=ba, _key=key, **k):
+            calls[_key] += 1
+            return _ba(*a, **k)
+
+        monkeypatch.setattr(mod.optim, "bundle_adjustment", counted)
+    got = convert.map_from_jax(before)
+    lm = LocalMapping(got, convert.camera_from_jax(CAM))
+    lm.abort_ba = abort
+    lm.local_bundle_adjustment(got.keyframes[KF])
+    ref = convert.map_from_jax(before)
+    jl = JLocalMapping(ref, CAM)
+    jl.abort_ba = abort
+    jl.local_bundle_adjustment(ref.keyframes[KF])
+    assert calls == ({"jax": 1, "port": 1} if abort else {"jax": 2, "port": 2})
+    assert (lm.n_local_ba, lm.n_ba_aborted) == (1, int(abort))
+    for k, kf in ref.keyframes.items():
+        np.testing.assert_allclose(got.keyframes[k].t_cw, kf.t_cw, atol=1e-3, rtol=0)
+    pids = np.nonzero(ref.pt_valid & got.pt_valid)[0]
+    err = np.linalg.norm(got.pt_xyz[pids] - ref.pt_xyz[pids], axis=-1)
+    print(f"abort {abort}: point |d| median {np.median(err):.2e} max {err.max():.2e}")
+    assert np.mean(err < 1e-3) >= 0.99
+    assert abs(_n_obs(got) - _n_obs(ref)) <= max(3, 0.01 * _n_obs(ref))
+    moved = sum(not np.array_equal(kf.t_cw, before.keyframes[k].t_cw) for k, kf in got.keyframes.items())
+    assert moved >= 2

@@ -247,6 +247,77 @@ def test_loop_closing_matches_jax(loop_case, voc, monkeypatch):
     assert np.percentile(d, 99) <= 5e-2 and d.max() <= 0.5, (np.percentile(d, 99), d.max())
 
 
+def _close_in_phases(before, voc, phased: bool):
+    """A port closer on the map before the closure, run through
+    insert_keyframe (process_prepared) or phase by phase as the async loop
+    worker runs it; the live point coordinates are scrambled while try_close
+    runs on the snapshot. Global BA is not started."""
+    m, lc = _port_closer(before, voc)
+    lc.gba.launch = lambda loop_kf_id: None
+    kf_id = before["kf_id"]
+    if not phased:
+        lc.insert_keyframe(kf_id)
+        return m, lc, None
+    kf = lc.prepare_keyframe(kf_id)
+    candidates = lc.detect_candidates(kf)
+    snapshot = lc.snapshot_for_closure(kf, candidates)
+    stats, cooldown = dict(lc.stats), dict(lc._sim3_cooldown)
+    live = lc.try_close(kf, candidates)
+    lc.stats, lc._sim3_cooldown = stats, cooldown  # the run below counts as the only one
+    xyz = m.pt_xyz.copy()
+    m.pt_xyz += 5.0  # the mapping worker moves the live map meanwhile
+    found = lc.try_close(kf, candidates, snapshot=snapshot)
+    m.pt_xyz[:] = xyz
+    assert [c for c, _ in found] == [c for c, _ in live]
+    for (_, a), (_, b) in zip(found, live):
+        np.testing.assert_array_equal(a, b)
+    lc.finalize(kf, found)
+    return m, lc, (kf, candidates, snapshot, found)
+
+
+def test_three_phases_equal_process_prepared(loop_case, voc):
+    """detect_candidates + snapshot_for_closure + try_close(snapshot=) +
+    finalize close the loop exactly as process_prepared does."""
+    before, _ = loop_case
+    m1, lc1, _ = _close_in_phases(before, voc, phased=False)
+    m2, lc2, _ = _close_in_phases(before, voc, phased=True)
+    assert lc1.n_loops_closed == lc2.n_loops_closed == 1
+    assert lc1.stats == lc2.stats and lc1.last_loop_kf_id == lc2.last_loop_kf_id
+    assert set(lc2.last_split) >= {"bow_transform", "detect", "snapshot", "ransac", "essential_graph"}
+    assert [k.kf_id for k in m1.good_keyframes()] == [k.kf_id for k in m2.good_keyframes()]
+    for kf in m1.keyframes.values():
+        np.testing.assert_array_equal(kf.t_cw, m2.keyframes[kf.kf_id].t_cw)
+        assert kf.loop_edges == m2.keyframes[kf.kf_id].loop_edges
+    n = m1.n_points
+    assert m2.n_points == n
+    np.testing.assert_array_equal(m1.pt_valid[:n], m2.pt_valid[:n])
+    np.testing.assert_array_equal(m1.pt_xyz[:n], m2.pt_xyz[:n])
+
+
+def test_snapshot_try_close_matches_jax(loop_case, voc):
+    """try_close on a snapshot against the JAX package's try_close(snapshot=)
+    on the same map and candidates, with the same RANSAC draws: the same
+    survivors, each corrected Sim3 within 1e-3."""
+    from orbslam2commentedbyxcm_tpu.models.loop_closing import LoopClosing as JLoopClosing
+
+    before, _ = loop_case
+    m, lc = _port_closer(before, voc)
+    kf = lc.prepare_keyframe(before["kf_id"])
+    candidates = lc.detect_candidates(kf)
+    assert candidates
+    stats = dict(lc.stats)
+    found = lc.try_close(kf, candidates, snapshot=lc.snapshot_for_closure(kf, candidates))
+    jlc = JLoopClosing(m, CAM, fix_scale=True)
+    jlc._sim3_cooldown = dict(before["cooldown"])
+    jlc._key = before["key"]
+    jfound = jlc.try_close(kf, candidates, snapshot=jlc.snapshot_for_closure(kf, candidates))
+    print(f"candidates {candidates}: port {[c for c, _ in found]}, JAX {[c for c, _ in jfound]}")
+    assert found and [c for c, _ in found] == [c for c, _ in jfound]
+    for (_, a), (_, b) in zip(found, jfound):
+        np.testing.assert_allclose(a, np.asarray(b), atol=1e-3)
+    assert {k: lc.stats[k] - stats[k] for k in lc.stats} == {k: jlc.stats[k] for k in lc.stats}
+
+
 def test_global_ba_matches_jax_solve(loop_case):
     before, _ = loop_case
     m = convert.map_from_jax(before["map"])
@@ -379,16 +450,16 @@ def test_sim3_cooldown(case):
     """tests/test_loop_cooldown.py's cases on the port: a rejected candidate
     is skipped for sim3_cooldown_kfs keyframes, then tried again, and the
     cooldown is per candidate."""
-    lc = LoopClosing(Map(), camera=None, map_lock=threading.Lock())
+    lc = LoopClosing(Map(device="cpu"), camera=None, map_lock=threading.Lock())
     if case == "skip-then-retry":
         lc._sim3_cooldown[2] = 4 + lc.sim3_cooldown_kfs
-        assert lc._compute_sim3_geom(_KF(5), [2]) is None
+        assert lc.try_close(_KF(5), [2]) is None
         assert (lc.stats["cooldown_skip"], lc.stats["sim3_tried"]) == (1, 0)
-        assert lc._compute_sim3_geom(_KF(4 + lc.sim3_cooldown_kfs), [2]) is None
+        assert lc.try_close(_KF(4 + lc.sim3_cooldown_kfs), [2]) is None
         assert (lc.stats["cooldown_skip"], lc.stats["sim3_tried"]) == (1, 1)
     else:
         lc._sim3_cooldown[7] = 10
-        lc._compute_sim3_geom(_KF(6), [7, 8])
+        lc.try_close(_KF(6), [7, 8])
         assert (lc.stats["cooldown_skip"], lc.stats["sim3_tried"]) == (1, 1)
 
 

@@ -95,7 +95,7 @@ def _script(m, rng, log):
 def maps():
     jm = JMap(point_capacity=256)  # grows past its capacity during the script
     jm._native = None
-    tm = TMap(point_capacity=256)
+    tm = TMap(device="cpu", point_capacity=256)
     jlog, tlog = [], []
     _script(jm, np.random.default_rng(3), jlog)
     _script(tm, np.random.default_rng(3), tlog)

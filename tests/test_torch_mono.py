@@ -5,8 +5,8 @@ input: compaction exactly, the initial BA (20 LM iterations over the
 two-keyframe map of the JAX run's initialization, carried across with
 `convert.map_from_jax`) to poses within 1e-3 and points within 1e-3 of their
 unit median depth. Then both Systems run SyntheticSequence("sideways") at
-320x240 with 600 features for 30 frames (the JAX System without its lazy
-vocabulary trainer). The two draw their RANSAC samples from different
+320x240 with 600 features for 30 frames (no vocabulary: each trains one
+lazily once its map holds 5 keyframes). The two draw their RANSAC samples from different
 generators and their extractors differ by ulps at levels >= 1, so the runs
 are held to one accuracy class: the port tracks >= 20 frames, its Sim3 ATE
 is at most 1.5 x the JAX package's + 1 cm, its map holds >= 100 points. A
@@ -49,7 +49,6 @@ def jax_run():
     seq = JSequence(camera=CAM, n_frames=N, trajectory="sideways")
     s = jsystem.System(CAM, jsystem.Sensor.MONOCULAR, config=JConfig(**CFG), enable_loop_closing=False)
     lm = s.local_mapping
-    lm.loop_closer = None
     snaps = {}
     initial_ba = lm.initial_ba
 

@@ -140,6 +140,21 @@ def test_solve_pose_graph_takes_cg_above_the_limit(rng, monkeypatch):
     np.testing.assert_array_equal(tpg.solve_pose_graph(*args_t, n_iters=30).poses.numpy(), dense.poses.numpy())
 
 
+def test_dense_limit_diverges_from_jax(monkeypatch):
+    """Divergence from the JAX package (ops/posegraph.py:408, limit 192): the
+    port's single-card dispatch stays dense up to 1024 vertices, the largest
+    K tools/posegraph_crossover.py measured (CG 4.7-6.7x slower on the H100
+    at every K from 32 to 1024). A graph of 193-1024 vertices, which the JAX
+    package hands to CG, takes the dense solver here."""
+    assert jpg.DENSE_VERTEX_LIMIT == 192 and tpg.DENSE_VERTEX_LIMIT == 1024
+    took = []
+    monkeypatch.setattr(tpg, "optimize_pose_graph", lambda *a, **k: took.append("dense"))
+    monkeypatch.setattr(tpg, "optimize_pose_graph_cg", lambda *a, **k: took.append("cg"))
+    for k in (32, 193, 1024, 1025):
+        tpg.solve_pose_graph(torch.zeros(k, 4, 4), None, None, None, None, None)
+    assert took == ["dense", "dense", "dense", "cg"]
+
+
 def _refine_scene(rng, n=80, s=1.2):
     p2 = np.stack([rng.uniform(-3, 3, n), rng.uniform(-2, 2, n), rng.uniform(4, 9, n)], -1).astype(np.float32)
     s12 = np.asarray(jgeo.sim3_exp(jnp.asarray([0.3, -0.1, 0.2, 0.05, 0.1, -0.03, np.log(s)], jnp.float32)))

@@ -3,9 +3,10 @@ synchronous RGB-D and stereo SLAM without place recognition.
 
 Both run BoxSequence seed 5 at 320x240 with 600 features and a keyframe at
 least every 6 frames: RGB-D for 30 frames, stereo for 20 (images rounded to
-integers, as 8-bit data are; see test_torch_stereo). The JAX System is
-`System(cam, sensor, enable_loop_closing=False)` with its lazy vocabulary
-trainer removed, the configuration this slice ports.
+integers, as 8-bit data are; see test_torch_stereo). Both Systems are
+`System(cam, sensor, enable_loop_closing=False)` with no vocabulary, so each
+trains one lazily from its map once it holds 5 keyframes and registers its
+keyframes in a database from then on.
 
 Each package runs its own extractor, and the extractors differ by ulps at
 pyramid levels >= 1 (test_torch_orb), so the two runs drift apart and are
@@ -26,6 +27,7 @@ from orbslam2commentedbyxcm_tpu_torch.models import system as tsystem
 from orbslam2commentedbyxcm_tpu_torch.models.tracking import TrackingConfig as TConfig
 from orbslam2commentedbyxcm_tpu_torch.utils import convert
 from orbslam2commentedbyxcm_tpu_torch.utils.evaluation import ate_rmse, positions_from_tcw
+from orbslam2commentedbyxcm_tpu_torch.utils.tracing import Tracer
 
 torch.set_num_threads(1)
 
@@ -55,7 +57,6 @@ def test_system_matches_jax(sensor, tmp_path):
     n = N_FRAMES[sensor]
     seq = JBoxSequence(camera=CAM, seed=5, n_frames=100, turns=0.35)
     jsys = jsystem.System(CAM, jsystem.Sensor[sensor], config=JConfig(**CFG), enable_loop_closing=False)
-    jsys.local_mapping.loop_closer = None
     tsys = tsystem.System(convert.camera_from_jax(CAM), tsystem.Sensor[sensor], config=TConfig(**CFG),
                           enable_loop_closing=False, device="cpu")
     j_tracked, j_ate = _run(jsys, sensor, seq, n)
@@ -90,18 +91,23 @@ def test_system_matches_jax(sensor, tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
-    """The async pipeline, the tracer and the mesh raise, naming their
-    ROADMAP.md item; loop closing (with the shipped vocabulary or the lazy
-    trainer), map save / load, monocular SLAM, a vocabulary and
-    localization mode are ported: they construct and run."""
+    """Only the mesh raises, naming its ROADMAP.md item; the async pipeline,
+    the tracer, loop closing (with the shipped vocabulary or the lazy
+    trainer, which is wired with loop closing off too), map save / load,
+    monocular SLAM, a vocabulary and localization mode are ported: they
+    construct and run."""
     cam = convert.camera_from_jax(CAM)
-    for kw, item in ((dict(sensor=tsystem.Sensor.RGBD, async_mapping=True), 10),
-                     (dict(sensor=tsystem.Sensor.RGBD, tracer=object()), 10),
-                     (dict(sensor=tsystem.Sensor.RGBD, mesh=object()), 11)):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 item {item}"):
-            tsystem.System(cam, device="cpu", **kw)
-    lazy = tsystem.System(cam, tsystem.Sensor.RGBD, device="cpu")  # the JAX package's defaults
-    assert lazy.vocabulary is None and type(lazy.local_mapping.loop_closer).__name__ == "_LazyVocabTrainer"
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6"):
+        tsystem.System(cam, tsystem.Sensor.RGBD, mesh=object(), device="cpu")
+    for kw in (dict(), dict(enable_loop_closing=False)):  # the JAX package's defaults, and without loop closing
+        lazy = tsystem.System(cam, tsystem.Sensor.RGBD, device="cpu", **kw)
+        assert lazy.vocabulary is None and type(lazy.local_mapping.loop_closer).__name__ == "_LazyVocabTrainer"
+    worker = tsystem.System(cam, tsystem.Sensor.RGBD, vocabulary="bootstrap", async_mapping=True, tracer=Tracer(),
+                            device="cpu")
+    assert type(worker.local_mapping).__name__ == "AsyncMapping"
+    assert worker.local_mapping.loop_closer is worker._loop_worker and worker._loop_worker.inner is worker.loop_closing
+    assert worker.tracking.tracer is worker.local_mapping.tracer is worker.tracer
+    worker.shutdown()
     loop = tsystem.System(cam, tsystem.Sensor.MONOCULAR, vocabulary="bootstrap", device="cpu")
     assert loop.local_mapping.loop_closer is loop.loop_closing and not loop.loop_closing.fix_scale
     assert loop.loop_closing.gba.lock is loop.map_lock
@@ -204,7 +210,6 @@ def test_keyframe_frame_is_its_own_reference():
     tsys = tsystem.System(convert.camera_from_jax(CAM), tsystem.Sensor.RGBD, config=TConfig(**CFG),
                           enable_loop_closing=False, device="cpu")
     jsys = jsystem.System(CAM, jsystem.Sensor.RGBD, config=JConfig(**CFG), enable_loop_closing=False)
-    jsys.local_mapping.loop_closer = None
     for i in range(8):
         for s in (tsys, jsys):
             assert s.track_rgbd(seq.render(i), seq.depth_map(i), i / 30.0) is not None
@@ -220,3 +225,33 @@ def test_keyframe_frame_is_its_own_reference():
                 np.testing.assert_array_equal(poses[ts], kfs[ts].t_cw)
         else:
             assert off > 1e-6
+
+
+def test_lazy_vocabulary_without_loop_closing_relocalizes():
+    """With no vocabulary and loop closing off, the port trains one from the
+    map once it holds 5 keyframes, as the JAX package does
+    (models/system.py:136,142-149), registers the keyframes in the database
+    and relocalizes a kidnapped frame through it."""
+    seq = JBoxSequence(camera=CAM, seed=5, n_frames=100, turns=0.35)
+    s = tsystem.System(convert.camera_from_jax(CAM), tsystem.Sensor.RGBD, config=TConfig(**CFG),
+                       enable_loop_closing=False, device="cpu")
+    trained_at, poses = None, []
+    for i in range(40):
+        poses.append(s.track_rgbd(seq.render(i), seq.depth_map(i), i / 30.0))
+        assert poses[-1] is not None
+        if trained_at is None and s.vocabulary is not None:
+            trained_at = len(s.map.good_keyframes())
+    assert trained_at == 5 and s.loop_closing is None
+    assert type(s.local_mapping.loop_closer).__name__ == "_DbOnlyRegistrar"
+    assert len(s.keyframe_db) == len(s.map.good_keyframes()) >= 6
+    blank = np.full((CAM.height, CAM.width), 128.0, np.float32)
+    assert s.track_rgbd(blank, np.zeros_like(blank), 2.0) is None
+    assert s.get_tracking_state() == tsystem.TrackingState.LOST
+    pose = s.track_rgbd(seq.render(15), seq.depth_map(15), 2.1)
+    assert pose is not None
+    # at least as close to the ground truth (the map frame is camera 0) as
+    # tracking put frame 15 on the first pass
+    want = np.linalg.inv(seq.pose(15) @ np.linalg.inv(seq.pose(0)))[:3, 3]
+    err, err_tracked = (np.linalg.norm(np.linalg.inv(p)[:3, 3] - want) for p in (pose, poses[15]))
+    print(f"frame 15 relocalized within {err:.4f} m of the ground truth, tracked within {err_tracked:.4f} m")
+    assert err <= err_tracked + 0.01

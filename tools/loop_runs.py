@@ -3,6 +3,7 @@ runs of one build, and how two builds compare on the same card.
 
     python3 tools/loop_runs.py [--runs N] [--tree DIR] [--out FILE]
                                [--deterministic] [--gba-after K]
+                               [--async] [--eight]
 
 Runs chip_smoke.py's phase 12 System (RGB-D, vocabulary="bootstrap", loop
 closing on) over its 130-frame BoxSequence orbit at 640x480 N times (default
@@ -19,7 +20,16 @@ lines. Two switches take the run's two sources of spread away, one each:
 `index_add_` otherwise sums in no fixed order), and `--gba-after K` holds the
 first global BA until K frames after the loop and then waits for it, so it
 writes back between frames loop + K and loop + K + 1 whatever the timing.
-Needs an NVIDIA GPU.
+
+`--async` runs phase 13's System instead: the same orbit with
+async_mapping=True (mapping and loop closing on worker threads), whose map
+depends on thread timing; each line adds the keyframes the queue cap
+deferred, the local BAs stopped early and the deepest mapping queue. Each run
+is held to chip_smoke's gates for that phase (every frame tracked, a loop
+closed, no false closure by ground truth, ATE within 1.5 x JAX_ATE_LOOP +
+1 cm) and the line says which gate failed. `--eight` then runs phase 14's
+async figure-eight (utils/gauntlet.run_sequence) N times, one line each with
+its record and the mini-gauntlet's gates. Needs an NVIDIA GPU.
 """
 
 import argparse
@@ -41,11 +51,12 @@ def _smoke():
     return mod
 
 
-def one_run(smoke, torch, dev, cam, seq, frames, gba_after=None) -> dict:
+def one_run(smoke, torch, dev, cam, seq, frames, gba_after=None, async_mapping=False) -> dict:
     from orbslam2commentedbyxcm_tpu_torch.models.system import Sensor, System
+    from orbslam2commentedbyxcm_tpu_torch.utils.gauntlet import adjudicate_loops
 
     slam = System(cam, Sensor.RGBD, config=smoke._loop_config(), vocabulary="bootstrap",
-                  enable_loop_closing=True, device=dev)
+                  enable_loop_closing=True, async_mapping=async_mapping, device=dev)
     lc = slam.loop_closing
     release = threading.Event()
     if gba_after is not None:
@@ -71,15 +82,29 @@ def one_run(smoke, torch, dev, cam, seq, frames, gba_after=None) -> dict:
         if lc.gba.n_completed > n_gba:
             gba_frames.append(i)
     release.set()
+    n_loops = lc.n_loops_closed
     slam.shutdown()
+    if lc.n_loops_closed > n_loops:
+        loops.append(len(frames))  # closed while shutdown drained the queues
     if lc.gba.n_completed > len(gba_frames):
         gba_frames.append(len(frames))  # wrote back after the last frame
     seconds = time.perf_counter() - t0
     poses = smoke._frame_poses(slam)
     n = len(frames)
+    adj = adjudicate_loops(slam, seq)
     out = {"loops": loops, "gba_write_back_frames": gba_frames, "gba_aborted": lc.gba.n_aborted,
            "lost_frames": lost, "keyframes": len(slam.map.good_keyframes()), "points": slam.map.n_valid_points(),
-           "ate": smoke._ate(poses, seq, range(n)), "seconds": seconds}
+           "ate": smoke._ate(poses, seq, range(n)), "seconds": seconds, "false_closures": adj["false_closures"],
+           "async": async_mapping}
+    if async_mapping:
+        lm = slam.local_mapping
+        out.update(kf_deferred=slam.tracking.n_kf_deferred, ba_aborted=lm.n_ba_aborted,
+                   ba_skipped=lm.n_ba_deferred, max_queue=lm.max_depth)
+    bound = 1.5 * smoke.JAX_ATE_LOOP + 0.01
+    failed = [name for name, ok in (("tracked", lost == 0), ("loop", bool(loops)),
+                                    ("false_closure", adj["false_closures"] == 0), ("ate", out["ate"] <= bound))
+              if not ok]
+    out["gates_failed"] = failed
     if loops:
         first = loops[0]
         split = lc.closure_splits[0]
@@ -98,6 +123,8 @@ def main() -> int:
     ap.add_argument("--out", default=None)
     ap.add_argument("--deterministic", action="store_true")
     ap.add_argument("--gba-after", type=int, default=None)
+    ap.add_argument("--async", dest="async_mapping", action="store_true")
+    ap.add_argument("--eight", action="store_true")
     args = ap.parse_args()
     if args.deterministic:
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")  # before CUDA starts
@@ -122,15 +149,33 @@ def main() -> int:
     frames = [(seq.render(i), seq.depth_map(i)) for i in range(smoke.N_LOOP)]
     label = os.path.relpath(tree, ROOT)
     for r in range(args.runs):
-        res = one_run(smoke, torch, dev, cam, seq, frames, args.gba_after)
+        res = one_run(smoke, torch, dev, cam, seq, frames, args.gba_after, args.async_mapping)
         res.update(tree=label, run=r, card=card, deterministic=args.deterministic, gba_after=args.gba_after)
-        print(f"[loop_runs {label} #{r}] {card} | " + ", ".join(
-            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in res.items()
-            if k not in ("tree", "run", "card")), flush=True)
-        if args.out:
-            with open(args.out, "a") as f:
-                f.write(json.dumps(res) + "\n")
+        _report(f"loop_runs {label} #{r}", card, res, args.out)
+    if args.eight:
+        from orbslam2commentedbyxcm_tpu_torch.utils.gauntlet import render_frames, run_sequence
+
+        cam8 = smoke._eight_camera()
+        images = render_frames("eight", smoke.EIGHT_FRAMES, cam8)
+        for r in range(args.runs):
+            rec = run_sequence("eight", smoke.EIGHT_FRAMES, augment=True, async_mapping=True, camera=cam8,
+                               n_features=900, device=dev, images=images)
+            gt = rec["gt_loops"]
+            rec["gates_failed"] = [name for name, ok in (
+                ("tracked", rec["tracked"] >= rec["frames"] - 5), ("loop", rec["loops_closed"] >= 1),
+                ("false_closure", gt["false_closures"] == 0), ("missed", gt["missed"] == 0),
+                ("drift", rec["drift_pct"] < 0.8)) if not ok]
+            rec.update(tree=label, run=r, card=card)
+            _report(f"loop_runs eight {label} #{r}", card, rec, args.out)
     return 0
+
+
+def _report(tag, card, res, out):
+    print(f"[{tag}] {card} | " + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                                          for k, v in res.items() if k not in ("tree", "run", "card")), flush=True)
+    if out:
+        with open(out, "a") as f:
+            f.write(json.dumps(res) + "\n")
 
 
 if __name__ == "__main__":
