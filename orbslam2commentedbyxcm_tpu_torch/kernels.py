@@ -1,4 +1,5 @@
-"""Build and bind the hand-written CUDA kernels in csrc/.
+"""Build and bind the hand-written CUDA kernels in csrc/, and the host C++
+helper beside them (csrc/png_unfilter.cpp, the PNG decoder's row filters).
 
 The sources are compiled at first use with nvcc, one process per source, all
 started together, and linked into one shared library with a plain C
@@ -7,6 +8,8 @@ The library lands in `build/kernels/` at the repository root, named by a hash
 of the sources and flags, so an edited source is rebuilt and a stale library
 is never loaded. Nothing here runs at import time: this module imports on
 machines without a CUDA toolkit, and only `library()` needs nvcc.
+`host_library()` builds the .cpp sources the same way with the host C++
+compiler (g++), which the CPU machines have too.
 
 No --use_fast_math: the frontend kernel's blur must round as its torch twin
 does, and the pose solve relies on IEEE division, sqrt, sin, cos.
@@ -17,9 +20,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -41,7 +46,15 @@ _SIGNATURES = {
     "pose_opt": [_P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P, _P, _P],
 }
 
+HOST_FLAGS = ["-std=c++17", "-O3", "-fPIC", "-shared"]
+_HOST_SIGNATURES = {
+    # int png_unfilter(src, dst, height, stride, bpp)
+    "png_unfilter": [_P, _P, _I, _I, _I],
+}
+
 _lib: ctypes.CDLL | None = None
+_host_lib: ctypes.CDLL | None = None
+_host_lock = threading.Lock()
 build_info: dict = {}  # {"path", "seconds", "built", "log"} after library()
 
 
@@ -54,6 +67,16 @@ def _nvcc() -> str:
 
 def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _library_path(stem: str, flags, sources, toolchain: str = "") -> Path:
+    """BUILD_DIR / stem_<hash of the flags, sources and `toolchain`>.so: an
+    edited source or flag, or another compiler, names another file, so a
+    stale build is never loaded."""
+    digest = hashlib.sha256(" ".join(flags).encode() + toolchain.encode())
+    for src in sources:
+        digest.update(src.name.encode() + src.read_bytes())
+    return BUILD_DIR / f"{stem}_{digest.hexdigest()[:16]}.so"
 
 
 def compile_library(path: Path, sources, defines=()) -> str:
@@ -105,10 +128,7 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        digest.update(src.name.encode() + src.read_bytes())
-    path = BUILD_DIR / f"libslam_kernels_{digest.hexdigest()[:16]}.so"
+    path = _library_path("libslam_kernels", NVCC_FLAGS, _sources())
     t0 = time.perf_counter()
     log = ""
     built = not path.exists()
@@ -124,3 +144,40 @@ def check(err: int, name: str) -> None:
     """Raise if a launcher returned a CUDA error code (cudaGetLastError)."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+
+
+def host_library() -> ctypes.CDLL:
+    """The host C++ helpers (csrc/*.cpp), built with g++ at first use into
+    `build/kernels/libslam_host_<hash>.so` and bound with ctypes (a foreign
+    call releases the GIL)."""
+    global _host_lib
+    with _host_lock:
+        if _host_lib is not None:
+            return _host_lib
+        cxx = shutil.which("g++") or shutil.which("c++")
+        if cxx is None:
+            raise RuntimeError("no host C++ compiler (g++) found: the PNG decoder's row filters need one")
+        sources = sorted(CSRC.glob("*.cpp"))
+        # a library built by another compiler or for another machine (and so
+        # perhaps another C library) is never loaded: both name the file
+        version = subprocess.run([cxx, "--version"], capture_output=True, text=True).stdout
+        path = _library_path("libslam_host", HOST_FLAGS, sources, f"{cxx}\n{version}{platform.machine()}")
+        if not path.exists():
+            path.parent.mkdir(parents=True, exist_ok=True)
+            work = tempfile.mkdtemp(dir=path.parent)
+            try:
+                tmp = os.path.join(work, path.name)
+                proc = subprocess.run([cxx, *HOST_FLAGS, "-o", tmp, *map(str, sources)],
+                                      capture_output=True, text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"{cxx} failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+                os.replace(tmp, path)
+            finally:
+                shutil.rmtree(work, ignore_errors=True)
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in _HOST_SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _host_lib = lib
+        return lib

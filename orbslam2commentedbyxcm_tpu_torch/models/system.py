@@ -481,6 +481,12 @@ class System:
         traversed via their stored pose relative to their spanning-tree
         parent (reference SaveTrajectoryTUM)."""
         self._drain_mapping()
+        return self._frame_trajectory_now()
+
+    def _frame_trajectory_now(self):
+        """frame_trajectory() from the poses as they stand, without waiting
+        for the mapping pipeline: for the threaded viewer, which holds
+        `map_lock`, which the workers and global BA's write-back need."""
         out = list(self._archived_trajectory)
         for ts, ref_id, t_rel in self.tracking.trajectory:
             kf = self.map.keyframes.get(ref_id)

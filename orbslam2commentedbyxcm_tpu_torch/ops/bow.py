@@ -60,6 +60,15 @@ class Vocabulary:
         """Bytes of one device copy of the tree."""
         return self.node_desc.size * 4 + self.node_children.size * 4
 
+    def save(self, path: str):
+        """npz with the JAX package's keys (Vocabulary.save there)."""
+        np.savez_compressed(
+            path, k=self.k, depth=self.depth, node_desc=self.node_desc,
+            node_children=self.node_children, node_parent=self.node_parent,
+            node_level=self.node_level, word_id=self.word_id,
+            word_weight=self.word_weight, word_node=self.word_node,
+        )
+
     @classmethod
     def load(cls, path: str) -> "Vocabulary":
         z = np.load(path)

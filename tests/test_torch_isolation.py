@@ -1,7 +1,10 @@
 """The port never imports JAX: every module of the package, one CPU tracking
 step, three RGB-D frames through the System, the shipped vocabulary and three
-monocular frames with place recognition, a loop-closing RGB-D System and a
-small trained vocabulary, in a fresh interpreter."""
+monocular frames with place recognition, a loop-closing RGB-D System, a
+small trained vocabulary and a TUM dataset on disk through
+cli.run_dataset, in a fresh interpreter. The dataset path (settings, PNG
+codec, rectification, readers, CLI) loads no cv2, PIL or matplotlib either:
+the port decodes images itself and depends on none of them."""
 
 import os
 import subprocess
@@ -51,10 +54,23 @@ import numpy as np
 small = bow.train_vocabulary(np.random.default_rng(0).integers(0, 2**32, (600, 8), dtype=np.uint32), k=4, depth=2,
                              device="cpu")
 assert small.n_words > 4
+import tempfile
+from orbslam2commentedbyxcm_tpu_torch.cli import run_dataset
+from orbslam2commentedbyxcm_tpu_torch.utils import dataset_writers
+root = tempfile.mkdtemp()
+tiny = Camera(fx=130.0, fy=130.0, cx=80.0, cy=60.0, width=160, height=120, bf=40.0)
+settings = dataset_writers.write_tum_rgbd(root, BoxSequence(camera=tiny, seed=11, n_frames=90, turns=0.35,
+                                                            tex_size=256), 3)
+assert run_dataset.main(["tum", root, settings, "--device", "cpu", "--no-loop-closing",
+                         "--out-prefix", root + "/"]) == 0
+assert len(np.loadtxt(root + "/CameraTrajectory.txt", ndmin=2)) == 3
 bad = sorted(m for m in sys.modules if m in ("jax", "orbslam2commentedbyxcm_tpu")
              or m.startswith(("jax.", "jaxlib", "orbslam2commentedbyxcm_tpu.")))
 print("JAX-MODULES:", bad)
 assert not bad, bad
+image_libs = sorted(m for m in sys.modules if m.split(".")[0] in ("cv2", "PIL", "matplotlib"))
+print("IMAGE-MODULES:", image_libs)
+assert not image_libs, image_libs
 """
 
 
@@ -64,3 +80,4 @@ def test_port_never_imports_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "JAX-MODULES: []" in proc.stdout
+    assert "IMAGE-MODULES: []" in proc.stdout

@@ -46,15 +46,24 @@ def test_frontend_kernel_bit_equal_to_twin(cuda_device, shape, kind):
 
 
 @pytest.mark.parametrize("size", [(640, 480), (752, 480), (1241, 376)], ids=lambda s: f"{s[0]}x{s[1]}")
-@pytest.mark.parametrize("kind", ["uint8", "float"])
+@pytest.mark.parametrize("kind", ["uint8", "float", "scene"])
 def test_pyramid_kernel_bit_equal_to_twin(cuda_device, size, kind):
     """All 8 levels of the extractor's pyramid in one launch against the
-    twin level by level: bit-equal."""
+    twin level by level: bit-equal. Sizes: TUM, EuRoC and KITTI frames
+    (1241 makes odd and ragged level widths); "scene" is a rendered frame
+    decoded from a PNG, as the dataset readers hand it over."""
     from orbslam2commentedbyxcm_tpu_torch.ops.orb import ORBExtractor
 
     w, h = size
     rng = np.random.default_rng(1)
-    img = rng.integers(0, 256, (h, w)) if kind == "uint8" else rng.uniform(0, 255, (h, w))
+    if kind == "scene":
+        from orbslam2commentedbyxcm_tpu_torch.utils import png
+        from orbslam2commentedbyxcm_tpu_torch.utils.synth import BoxSequence, default_camera
+
+        frame = BoxSequence(camera=default_camera(w, h), seed=12, trajectory="line").render(3)
+        img = png.decode(png.encode(frame.astype(np.uint8)))
+    else:
+        img = rng.integers(0, 256, (h, w)) if kind == "uint8" else rng.uniform(0, 255, (h, w))
     buf, table = ORBExtractor(n_features=1000)._pyramid(torch.from_numpy(img.astype(np.float32)).to(cuda_device))
     before = fk.fused_frontend_pyramid.launches
     out = fk.fused_frontend_pyramid(buf, table, 20.0, 7.0)
@@ -95,7 +104,8 @@ def _pose_problem(rng, n, stereo_frac):
 
 @pytest.mark.parametrize("n,stereo_frac", [
     (1, 0.5), (32, 0.5), (128, 0.5), (129, 0.5), (300, 0.5),
-    (1000, 0.0), (1000, 0.5), (1000, 1.0), (2000, 0.5),
+    (1000, 0.0), (1000, 0.5), (1000, 1.0), (1200, 0.0), (1200, 0.5), (1200, 1.0),
+    (2000, 0.0), (2000, 0.5), (2000, 1.0),
     (56000, 0.5), (56001, 0.5), (70000, 0.5),
 ])
 def test_pose_kernel_matches_twin(cuda_device, n, stereo_frac):
@@ -105,7 +115,9 @@ def test_pose_kernel_matches_twin(cuda_device, n, stereo_frac):
     (past the 48 KB default through the opt-in limit: 2000 edges, 56000);
     beyond that it streams them from global memory (56001, 70000). Below
     300 edges the noisy observations do not pin the pose to the truth, so
-    only the bars against the twin apply there. The kernel's own count of
+    only the bars against the twin apply there. 1000, 1200 and 2000 are the
+    extractor capacities of the TUM1, EuRoC and KITTI settings, each with
+    mono, mixed and stereo edges. The kernel's own count of
     its work is checked against its limits."""
     args, t_true = _pose_problem(np.random.default_rng(0), n, stereo_frac)
     targs = [torch.from_numpy(a).to(cuda_device) for a in args]
@@ -306,3 +318,23 @@ def test_async_system_on_card(cuda_device):
     assert not s._loop_worker._thread.is_alive()
     assert abs(kfs[0] - kfs[1]) <= 1 and kfs[1] >= 4
     assert s.tracer.stats()["spans"]["local_ba"]["n"] >= 3
+
+
+def test_run_dataset_on_card(cuda_device, tmp_path):
+    """cli.run_dataset on the card over a small TUM fixture on disk: every
+    frame through K1, the pose solves through K2, the trajectory written."""
+    from orbslam2commentedbyxcm_tpu_torch.cli import run_dataset
+    from orbslam2commentedbyxcm_tpu_torch.utils import dataset_writers
+    from orbslam2commentedbyxcm_tpu_torch.utils.camera import Camera
+    from orbslam2commentedbyxcm_tpu_torch.utils.synth import BoxSequence
+
+    cam = Camera(fx=260.0, fy=260.0, cx=160.0, cy=120.0, width=320, height=240, bf=80.0, fps=30.0)
+    settings = dataset_writers.write_tum_rgbd(str(tmp_path), BoxSequence(camera=cam, n_frames=90, seed=11,
+                                                                         turns=0.35), 12)
+    k1, k2 = fk.fused_frontend_pyramid.launches, poseopt_kernel.pose_optimization_fused.launches
+    assert run_dataset.main(["tum", str(tmp_path), settings, "--no-loop-closing",
+                             "--out-prefix", str(tmp_path) + "/"]) == 0
+    assert fk.fused_frontend_pyramid.launches - k1 == 12
+    assert poseopt_kernel.pose_optimization_fused.launches - k2 >= 2 * 11
+    traj = np.loadtxt(str(tmp_path / "CameraTrajectory.txt"))
+    assert traj.shape == (12, 8) and np.isfinite(traj).all()

@@ -5,6 +5,7 @@ JAX_ATE_LOOP (each port bound is 1.5 x that + 1 cm).
     python3 tools/jax_reference_ate.py mono      # ~75 s on 2 CPU threads
     python3 tools/jax_reference_ate.py rgbd stereo
     python3 tools/jax_reference_ate.py loop      # several minutes per frame count
+    python3 tools/jax_reference_ate.py dataset [tum kitti euroc]   # ~1-1.5 min each
 
 Runs the JAX System at 640x480 with default_camera(640, 480) and 1000
 features. rgbd / stereo / mono use chip_smoke's keyframe policy and no loop
@@ -27,8 +28,15 @@ figure is given twice: on the JAX package's frame trajectory as it records
 it, and with every keyframe frame recorded as its own keyframe's pose, as the
 port records it (the JAX package records the frame's pose from before the
 synchronous local BA and loop correction against the keyframe moved by
-them). `loop N` runs one count only. Needs the JAX package; the port is not
-imported.
+them). `loop N` runs one count only.
+
+dataset is chip_smoke's phase 15 (JAX_ATE_DATASET): each format's fixture
+(chip_smoke.DATASET_FIXTURES, written by chip_smoke.write_dataset_fixture)
+rendered by the JAX package's writer into a temporary directory, then run
+through the JAX CLI, examples/run_dataset.py, on the CPU with
+chip_smoke.DATASET_FLAGS; prints the CLI's tracked frames and ATE (SE3).
+
+Needs the JAX package; the port is not imported.
 """
 
 import os
@@ -161,9 +169,40 @@ def run_loop(counts):
             return
 
 
+def run_dataset(formats):
+    import re
+    import subprocess
+    import tempfile
+
+    import chip_smoke
+    from orbslam2commentedbyxcm_tpu.utils import dataset_writers
+    from orbslam2commentedbyxcm_tpu.utils.config import load_settings
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for fmt in formats:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            args = chip_smoke.write_dataset_fixture(fmt, tmp, dataset_writers, BoxSequence, load_settings)
+            write_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            env = dict(os.environ, JAX_PLATFORMS="cpu")
+            out = subprocess.run([sys.executable, os.path.join(repo, "examples", "run_dataset.py"), *args,
+                                  *chip_smoke.DATASET_FLAGS, "--out-prefix", tmp + "/"],
+                                 cwd=repo, env=env, capture_output=True, text=True)
+            if out.returncode != 0:
+                raise SystemExit(f"{fmt}: the JAX CLI failed:\n{out.stdout[-2000:]}{out.stderr[-2000:]}")
+            tracked = re.search(r"tracked (\d+/\d+) frames", out.stdout).group(1)
+            ate = float(re.search(r"ATE RMSE: ([0-9.]+) cm", out.stdout).group(1))
+            print(f"dataset {fmt}: {chip_smoke.DATASET_FIXTURES[fmt]}, JAX CLI CPU {tracked} tracked, ATE "
+                  f"{ate:.2f} cm = {ate / 100:.4f} m (SE3); written in {write_s:.1f} s, run "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 if __name__ == "__main__":
     args = sys.argv[1:] or ["mono"]
-    if args[0] == "loop":
+    if args[0] == "dataset":
+        run_dataset(args[1:] or ["tum", "kitti", "euroc"])
+    elif args[0] == "loop":
         run_loop([int(args[1])] if len(args) > 1 else range(LOOP_FIRST, LOOP_LAST + 1, LOOP_STEP))
     else:
         for which in args:
