@@ -8,7 +8,8 @@ checks each against its plain torch twin on the card, and drives the port the
 way a user would: the per-frame tracking step, then the System's synchronous
 RGB-D, stereo and monocular SLAM, relocalization with the shipped vocabulary,
 localization mode, loop closing with map save and load, the async pipeline,
-the figure-eight loop gate and the three dataset formats read from disk.
+the figure-eight loop gate, the three dataset formats read from disk and the
+sharded global solvers, in the System and across two processes.
 Phases, each printing one line:
 
   1. device   the card's name and power limit (nvidia-smi), TF32 flags
@@ -79,7 +80,17 @@ Phases, each printing one line:
               wall fps, peak memory; then utils/vocab_tools trains a
               vocabulary from 20 KITTI images on the card and quantizes one
               frame with it; cv2 and PIL never loaded
- 16. kernels  one JSON line: per kernel, launches summed over phases 6-15,
+ 16. mesh     System(mesh=make_mesh(8)) over phase 12's orbit with the
+              essential graph's gate at 0 vertices (global BA's at its
+              default 2048 points): 130/130 tracked, a loop closed, no false
+              closure, both sharded paths taken, ATE against the JAX
+              package's mesh run; then, on the mesh run's global-BA problem
+              and essential graph, the sharded solvers (dense and CG BA, the
+              pose graph) at 1, 4 and 8 shards against the single-device
+              ones, a 4-shard repeat bit-equal; 2 processes x 4 shards (gloo,
+              both on this card, torchrun variables) against 1 x 8, ms per
+              solve, psums and bytes; gn and dogleg against lm (K2) at N=1000
+ 17. kernels  one JSON line: per kernel, launches summed over phases 6-16,
               error, times, bound
 
 The last line is {"ok": true, "device": {...}}. Any failed phase exits non-zero
@@ -122,6 +133,21 @@ N_LOOP, JAX_ATE_LOOP, LOOP_RELOC_FRAME = 130, 0.0205, 2
 # edge's drift (the error of the relative pose between the two frames it
 # joins) at most LOOP_DRIFT_CUT x the same frames' drift with loop closing off
 LOOP_ATE_CUT, LOOP_DRIFT_CUT = 0.9, 0.5
+# phase 16: the JAX package's ATE on the CPU over phase 12's run with
+# System(mesh=make_mesh(8)) on 8 virtual devices and the essential graph's
+# gate at 0 vertices (tools/jax_reference_ate.py mesh; keyframe frames at
+# their keyframe, SE3); the port's bound is 1.5 x that + 1 cm
+JAX_ATE_MESH = 0.0186
+MESH_SHARDS = (1, 4, 8)     # one-process meshes the solvers are held to the single-device ones at
+MESH_RANKS, MESH_RANK_SHARDS = 2, 4   # the cross-process run: 2 ranks (gloo, one card) x 4 shards
+MESH_POSE_TOL = 5e-3        # tests/test_dist_ba.py: pose error (norm of the se3 log) of a sharded solve
+# CG steps per LM iteration when the sharded CG solve is held to the dense
+# optimum: global BA's 25 (the JAX package's system_bridge) stop short of it
+# (this phase's 42-pose problem on an H100: poses 0.028 off at a cost 0.02%
+# higher; a 320x240 CPU rehearsal's 50 poses: 0.4 off at 0.9%); 200 reach it
+MESH_PARITY_CG = 200
+MESH_GRAPH_TOL = 2e-3       # tests/test_dist_posegraph.py: assert_allclose on the Sim3 poses
+ALGORITHM_TOL = 2e-3        # tests/test_optim.py: gn / dogleg pose error against lm
 # phase 15: each dataset format's fixture, written to disk by the port's
 # writer from a utils/synth BoxSequence seen through the published settings
 # file's camera and feature count; the distortion terms are zeroed (the
@@ -1093,7 +1119,8 @@ def phase_loop(torch, dev, card: str):
           f"{LOOP_RELOC_FRAME} relocalized against the reloaded map within {pos:.4f} m / {rot:.4f} deg in "
           f"{reloc_rows[0][1]:.3f} ms | loop solvers, host clock with a synchronize (ms): {_calls_text(solver_calls)}")
     sync = {"ordinary": plain_ms, "keyframe": kf_ms, "loop": [rows[loop_frame][1]], "ate": ate,
-            "keyframes": len(slam.map.good_keyframes())}
+            "keyframes": len(slam.map.good_keyframes()), "gba": g,
+            "essential_graph": {k: split[k] for k in ("essential_graph", "eg_vertices", "eg_edges", "eg_iterations")}}
     return launches, {"cam": cam, "seq": seq, "frames": frames, "sync": sync}
 
 @contextlib.contextmanager
@@ -1478,6 +1505,283 @@ def phase_datasets(torch, dev, card: str):
     return launches
 
 
+def _pose_error(a, b) -> float:
+    """Norm of the se3 log of a b^-1 (tests/test_optim.pose_err)."""
+    import torch
+
+    from orbslam2commentedbyxcm_tpu_torch.utils.geometry import se3_log
+
+    d = np.asarray(a, np.float64) @ np.linalg.inv(np.asarray(b, np.float64))
+    return float(torch.linalg.norm(se3_log(torch.tensor(d, dtype=torch.float32))))
+
+
+def _max_pose_error(a, b) -> float:
+    return max(_pose_error(x, y) for x, y in zip(a, b))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _mesh_problem(torch, slam):
+    """Phase 16's global-BA problem: every good keyframe of the mesh run's
+    final map and their points (assemble_ba_problem, the origin fixed; RGB-D
+    edges are stereo where the depth is valid, mono elsewhere), 5% of the
+    edges masked out, the free poses perturbed by ~3 mm / 0.2 deg and the
+    points by ~1 cm."""
+    from orbslam2commentedbyxcm_tpu_torch.models.local_mapping import assemble_ba_problem
+    from orbslam2commentedbyxcm_tpu_torch.utils.geometry import se3_exp
+
+    m = slam.map
+    problem = assemble_ba_problem(m, [k.kf_id for k in m.good_keyframes()], fixed_ids={m.origin_kf_id})
+    rng = np.random.default_rng(16)
+    problem["omask"] = rng.random(len(problem["omask"])) >= 0.05
+    free = ~problem["pose_fixed"]
+    xi = torch.from_numpy(rng.normal(0, 0.003, (int(free.sum()), 6)).astype(np.float32))
+    problem["poses"][free] = se3_exp(xi).numpy() @ problem["poses"][free]
+    problem["points"] = problem["points"] + rng.normal(0, 0.01, problem["points"].shape).astype(np.float32)
+    return problem
+
+
+def _timed(fn, reps: int):
+    """(last result, host ms of each of `reps` calls after one untimed call;
+    each call ends in a host read, so the card is idle at both ends)."""
+    out = fn()
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return out, ms
+
+
+def _mesh_solves(torch, mesh, problem, cam, graph, reps: int, profile: bool = False) -> dict:
+    """The live pipeline's two sharded solves (system_bridge) over `mesh`:
+    results as numpy, host ms per solve, psums per solve, bytes per psum;
+    with `profile`, the device ms and device operations (kernels and
+    copies) of one more solve (torch.profiler)."""
+    from orbslam2commentedbyxcm_tpu_torch.parallel import system_bridge
+
+    out = {}
+    for name, solve in (("ba", lambda: system_bridge.solve_ba_problem_dist(problem, cam, mesh)),
+                        ("graph", lambda: system_bridge.solve_pose_graph_dist(*graph, mesh, n_iters=20))):
+        n0, b0 = mesh.n_psum, mesh.psum_bytes
+        res, ms = _timed(solve, reps)
+        n = (mesh.n_psum - n0) / (reps + 1)
+        out[name] = {"ms": ms, "psums": n, "bytes": (mesh.psum_bytes - b0) / max(mesh.n_psum - n0, 1),
+                     "poses": np.asarray(res.poses.cpu() if torch.is_tensor(res.poses) else res.poses),
+                     "points": getattr(res, "points", None), "cost": float(res.cost)}
+        if profile:
+            out[name]["device_ms"], out[name]["device_ops"] = _device_ms(solve, 1, "")
+    return out
+
+
+def _mesh_rank(problem, cam, graph, reps: int, device: str) -> dict:
+    """One rank of phase 16's cross-process run: joins the group from
+    torchrun's variables (gloo), MESH_RANK_SHARDS shards on `device` (every
+    rank on the same card)."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from orbslam2commentedbyxcm_tpu_torch.parallel import multihost
+
+    _check(multihost.initialize(backend="gloo"), "mesh rank: no process group from the environment")
+    mesh = multihost.make_hybrid_mesh(MESH_RANK_SHARDS, device=device)
+    out = _mesh_solves(torch, mesh, problem, cam, graph, reps)
+    out.update(axes=mesh.axis_names, shards=mesh.n_shards, rank=mesh.rank)
+    return out
+
+
+def phase_mesh(torch, dev, card: str, loop, k2):
+    """System(mesh=make_mesh(8)) over phase 12's orbit; the sharded solvers
+    against the single-device ones at 1, 4 and 8 shards; 2 processes x 4
+    shards against 1 x 8; gn and dogleg against lm. Returns the kernel
+    launches of the System run."""
+    from orbslam2commentedbyxcm_tpu_torch.models import loop_closing as loop_closing_mod
+    from orbslam2commentedbyxcm_tpu_torch.models.local_mapping import solve_ba_problem
+    from orbslam2commentedbyxcm_tpu_torch.models.system import Sensor, System
+    from orbslam2commentedbyxcm_tpu_torch.ops.optim import ALGORITHMS, pose_optimization
+    from orbslam2commentedbyxcm_tpu_torch.ops.posegraph import optimize_pose_graph_cg
+    from orbslam2commentedbyxcm_tpu_torch.parallel import dist_ba, dist_posegraph, multihost
+    from orbslam2commentedbyxcm_tpu_torch.parallel.mesh import make_mesh
+    from orbslam2commentedbyxcm_tpu_torch.utils.gauntlet import adjudicate_loops
+
+    # 1. the System over an 8-shard mesh at phase 12's size; only the
+    # essential graph's gate is lowered (global BA's stays at 2048 points)
+    cam, seq, frames, sync = loop["cam"], loop["seq"], loop["frames"], loop["sync"]
+    k1c, k2c = _launch_counters()
+    timer = _EventTimer(torch)
+    mesh = make_mesh(8, device=dev)
+    slam = System(cam, Sensor.RGBD, config=_loop_config(), vocabulary="bootstrap", mesh=mesh, device=dev)
+    lc = slam.loop_closing
+    lc.dist_min_vertices = 0
+    graphs = []
+    solve_graph = loop_closing_mod.solve_pose_graph_dist
+    loop_closing_mod.solve_pose_graph_dist = lambda *a, **kw: graphs.append(a) or solve_graph(*a, **kw)
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    k1c.launches = k2c.launches = 0
+    rows, loops = [], []
+    try:
+        for i, (img, depth) in enumerate(frames):
+            n_loops = lc.n_loops_closed
+            _track_timed(slam.track_rgbd, rows, (img, depth, i / 30.0), timer)
+            if lc.n_loops_closed > n_loops:
+                loops.append(i)
+        slam.shutdown()
+    finally:
+        loop_closing_mod.solve_pose_graph_dist = solve_graph
+    launches = {"fused_frontend": k1c.launches, "pose_optimization_fused": k2c.launches}
+    peak_mib = torch.cuda.max_memory_allocated(dev) / 2**20
+    _check(all(r[0] is not None for r in rows), f"mesh: {sum(r[0] is None for r in rows)} frames not tracked")
+    _check(not slam._archived_kf_trajectory, "mesh: tracking was lost and the System reset")
+    _check(lc.n_loops_closed >= 1, f"mesh: no loop closed over {N_LOOP} frames, stats {lc.stats}")
+    adj = adjudicate_loops(slam, seq)
+    _check(adj["loop_edge_hits"] >= 1 and adj["false_closures"] == 0, f"mesh: ground truth {adj}")
+    _check(lc.stats["posegraph_distributed"] >= 1 and len(graphs) == lc.stats["posegraph_distributed"],
+           f"mesh: essential graphs through the mesh {lc.stats['posegraph_distributed']}")
+    _check(lc.gba.n_distributed >= 1 and lc.gba.last_stats.get("distributed"),
+           f"mesh: global BA through the mesh {lc.gba.n_distributed} times (completed {lc.gba.n_completed}, "
+           f"last {lc.gba.last_stats})")
+    _check({r[2] for r in rows} == {1}, f"mesh: K1 launches per frame {sorted({r[2] for r in rows})}")
+    _check(min(r[3] for r in rows[1:]) >= 2, "mesh: a tracked frame launched K2 fewer than 2 times")
+    ate = _ate(_frame_poses(slam), seq, range(N_LOOP))
+    bound = 1.5 * JAX_ATE_MESH + 0.01
+    _check(ate <= bound, f"mesh: ATE {ate:.4f} m over {bound:.4f} m (1.5 x JAX {JAX_ATE_MESH} m + 1 cm); loops on "
+           f"frames {loops}, {len(slam.map.good_keyframes())} keyframes")
+    g, g12 = lc.gba.last_stats, sync["gba"]
+    split, eg12 = lc.closure_splits[0], sync["essential_graph"]
+    print(f"[16 mesh system] {card} | System(RGBD, vocabulary=bootstrap, mesh=make_mesh(8, device={dev})), "
+          f"dist_min_vertices 0, dist_min_points {lc.gba.dist_min_points}, phase 12's {N_LOOP}-frame orbit: "
+          f"{len(rows)}/{N_LOOP} tracked, loops closed on frames {loops}, ground truth {adj}, "
+          f"{len(slam.map.good_keyframes())} keyframes, ATE {ate:.4f} m (bound {bound:.4f} m; phase 12 "
+          f"{sync['ate']:.4f} m) | global BA through the mesh {lc.gba.n_distributed} of {lc.gba.n_completed} "
+          f"completed: {1e3 * g['seconds']:.3f} ms, {g['poses']} poses, {g['points']} points "
+          f"(phase 12 single-device: {1e3 * g12['seconds']:.3f} ms, {g12['poses']} poses, {g12['points']} points) | "
+          f"essential graph through the mesh: {1e3 * split['essential_graph']:.3f} ms, {split['eg_vertices']} "
+          f"vertices, {split['eg_edges']} edges, {split['eg_iterations']} LM iterations (phase 12 dense: "
+          f"{1e3 * eg12['essential_graph']:.3f} ms, {eg12['eg_iterations']} iterations) | mesh psums "
+          f"{mesh.n_psum}, {mesh.psum_bytes / 2**20:.2f} MiB reduced | K1 {launches['fused_frontend']}, K2 "
+          f"{launches['pose_optimization_fused']} launches | peak {peak_mib:.1f} MiB")
+
+    # 2. the sharded solvers against the single-device ones, on the card
+    problem = _mesh_problem(torch, slam)
+    graph = graphs[0][:6]
+    intr = (cam.fx, cam.fy, cam.cx, cam.cy, cam.bf)
+    single = solve_ba_problem(problem, cam, dev, ((10, False),), relabel_between=False)
+    single_poses = single.poses.cpu().numpy()
+    g_t = [torch.as_tensor(a).to(dev) for a in graph]
+    g_single = optimize_pose_graph_cg(*g_t, n_iters=20)
+    parity, repeat = [], {}
+    for n in MESH_SHARDS:
+        m_n = make_mesh(n, device=dev)
+        sh = dist_ba.shard_ba_problem(problem["points"], problem["point_valid"], problem["op"], problem["opt"],
+                                      problem["ouv"], problem["omask"], problem["osig"], n)
+        args = (m_n, torch.from_numpy(problem["poses"]).to(dev), torch.from_numpy(problem["pose_fixed"]).to(dev),
+                *[m_n.local(a) for a in (sh[0], sh[1], *sh[3:])], *intr)
+        runs = {"dense": dist_ba.distributed_bundle_adjustment(*args, n_iters=10, use_huber=False),
+                "cg": dist_ba.distributed_bundle_adjustment_cg(*args, n_iters=10, n_cg=MESH_PARITY_CG,
+                                                               use_huber=False),
+                "cg25": dist_ba.distributed_bundle_adjustment_cg(*args, n_iters=10, n_cg=25, use_huber=False)}
+        costs = {k: float(v[2]) for k, v in runs.items()}
+        errs = {k: _max_pose_error(v[0].cpu().numpy(), single_poses) for k, v in runs.items()}
+        held = {k: errs[k] for k in ("dense", "cg")}
+        shards = dist_posegraph.shard_posegraph_problem(*graph[2:], m_n)
+        g_run = dist_posegraph.distributed_pose_graph(graph[0], graph[1], *(m_n.local(a) for a in shards), mesh=m_n)
+        g_err = float((g_run.poses - g_single.poses).abs().max())
+        parity.append((n, errs, costs, g_err, g_run.iterations))
+        _check(max(held.values()) < MESH_POSE_TOL, f"mesh solvers, {n} shards: pose error {held} against the "
+               f"single-device solve (want < {MESH_POSE_TOL})")
+        for cg in ("cg", "cg25"):
+            _check(costs[cg] <= 1.05 * costs["dense"] + 1e-3, f"mesh solvers, {n} shards: {cg} cost {costs[cg]} "
+                   f"over 1.05 x dense {costs['dense']} + 1e-3")
+        _check(g_err < MESH_GRAPH_TOL, f"mesh pose graph, {n} shards: {g_err} from optimize_pose_graph_cg")
+        if n == 4:
+            again = dist_ba.distributed_bundle_adjustment_cg(*args, n_iters=10, n_cg=25, use_huber=False)
+            g_again = dist_posegraph.distributed_pose_graph(graph[0], graph[1], *(m_n.local(a) for a in shards),
+                                                            mesh=m_n)
+            repeat = {"ba": all(torch.equal(a, b) for a, b in zip(runs["cg25"], again)),
+                      "graph": torch.equal(g_run.poses, g_again.poses)}
+            _check(all(repeat.values()), f"mesh solvers, 4 shards: a repeat is not bit-equal ({repeat})")
+    n_stereo = int((problem["ouv"][:, 2] >= 0).sum())
+    print(f"[16 mesh parity] global-BA problem of the mesh run's final map: {len(problem['poses'])} poses "
+          f"({int(problem['pose_fixed'].sum())} fixed), {len(problem['pids'])} points, {len(problem['op'])} edges "
+          f"({n_stereo} stereo, {int((~problem['omask']).sum())} masked), 10 plain LM iterations (CG: "
+          f"{MESH_PARITY_CG} steps each); essential graph "
+          f"{len(graph[0])} vertices, {len(graph[2])} edges | single-device: bundle_adjustment (dense), "
+          f"optimize_pose_graph_cg ({g_single.iterations} iterations) | " + "; ".join(
+              f"{n} shards: pose error dense {e['dense']:.3g} / CG {e['cg']:.3g} (bound {MESH_POSE_TOL}; CG with "
+              f"global BA's 25 steps {e['cg25']:.3g}, not held), cost dense {c['dense']:.6g} / CG {c['cg']:.6g} / CG "
+              f"25 steps {c['cg25']:.6g}, pose graph max|d| {ge:.3g} (bound {MESH_GRAPH_TOL}, {gi} iterations)"
+              for n, e, c, ge, gi in parity) + f" | 4 shards, global BA's CG and the pose graph repeated: bit-equal "
+          f"{repeat}")
+
+    # 3. two processes x 4 shards (gloo, both on this card) against 1 x 8
+    reps = 2
+    one = _mesh_solves(torch, make_mesh(8, device=dev), problem, cam, graph, reps, profile=True)
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port())}
+    t0 = time.perf_counter()
+    ranks = multihost.launch_local(_mesh_rank, MESH_RANKS, args=(problem, cam, graph, reps, str(dev)), env=env,
+                                   timeout_s=240)
+    spawn_s = time.perf_counter() - t0
+    for r in ranks:
+        _check(r["axes"] == ("dcn", "ici") and r["shards"] == MESH_RANKS * MESH_RANK_SHARDS,
+               f"mesh rank {r['rank']}: axes {r['axes']}, {r['shards']} shards")
+        d_ba = _max_pose_error(r["ba"]["poses"], one["ba"]["poses"])
+        d_pts = float(np.abs(r["ba"]["points"] - one["ba"]["points"]).max())
+        d_graph = float(np.abs(r["graph"]["poses"] - one["graph"]["poses"]).max())
+        _check(d_ba < MESH_POSE_TOL and d_graph < MESH_GRAPH_TOL,
+               f"mesh rank {r['rank']}: 2 x 4 against 1 x 8: pose error {d_ba}, pose graph {d_graph}")
+        _check(r["ba"]["cost"] <= 1.05 * one["ba"]["cost"] + 1e-3, f"mesh rank {r['rank']}: cost "
+               f"{r['ba']['cost']} against 1 x 8's {one['ba']['cost']}")
+    same = all(np.array_equal(ranks[0][k]["poses"], ranks[1][k]["poses"]) for k in ("ba", "graph"))
+    _check(same, "mesh: the two ranks hold different results")
+
+    def solve_text(tag, s):
+        dev_text = {k: (f", device {s[k]['device_ms']:.3f} ms in {s[k]['device_ops']} kernels and copies "
+                        f"(torch.profiler)" if "device_ms" in s[k] else "") for k in ("ba", "graph")}
+        return (f"{tag}: BA {_stats(s['ba']['ms'])} ms{dev_text['ba']}, {s['ba']['psums']:.0f} psums per solve, "
+                f"{s['ba']['bytes']:.0f} B per psum; pose graph {_stats(s['graph']['ms'])} ms{dev_text['graph']}, "
+                f"{s['graph']['psums']:.0f} psums, {s['graph']['bytes']:.0f} B per psum")
+
+    print(f"[16 mesh processes] system_bridge solves of the same problems (global BA: 10 Schur-CG iterations in "
+          f"chunks of 3, 25 CG steps each; essential graph: 20 LM), host ms per solve after one untimed call "
+          f"({reps} timed): " + solve_text("1 process x 8 shards", one) + " | " + solve_text(
+              f"{MESH_RANKS} processes x {MESH_RANK_SHARDS} shards (gloo on {dev}, torchrun variables; rank 0)",
+              ranks[0]) + f" | 2 x 4 against 1 x 8: pose error "
+          f"{max(_max_pose_error(r['ba']['poses'], one['ba']['poses']) for r in ranks):.3g}, points max|d| "
+          f"{max(float(np.abs(r['ba']['points'] - one['ba']['points']).max()) for r in ranks):.3g}, cost "
+          f"{ranks[0]['ba']['cost']:.6g} / {one['ba']['cost']:.6g}, pose graph max|d| "
+          f"{max(float(np.abs(r['graph']['poses'] - one['graph']['poses']).max()) for r in ranks):.3g}; ranks "
+          f"bit-equal; spawn to join {spawn_s:.1f} s")
+
+    # 4. gn and dogleg against lm on K2's problem (N = 1000): the plain
+    # solve on the card, K2 not launched
+    t0, pts, obs, mask, _ = make_pose_problem(np.random.default_rng(0), 1000, 0.5)
+    args = [torch.from_numpy(a).to(dev) for a in (t0, pts, obs, mask, np.ones(1000, np.float32))]
+    pcam = (FX, FY, CX, CY, BF)
+    lm = pose_optimization(*args, *pcam).t_cw.cpu().numpy()
+    algs = {}
+    for alg in ALGORITHMS[1:]:
+        before = k2c.launches
+        t_alg = pose_optimization(*args, *pcam, algorithm=alg).t_cw.cpu().numpy()
+        ms = _cuda_ms(lambda: pose_optimization(*args, *pcam, algorithm=alg), 5)
+        dev_ms, ops = _device_ms(lambda: pose_optimization(*args, *pcam, algorithm=alg), 1, "")
+        _check(k2c.launches == before, f"{alg}: launched K2")
+        algs[alg] = (_pose_error(t_alg, lm), ms, dev_ms, ops)
+        _check(algs[alg][0] < ALGORITHM_TOL, f"{alg}: pose error {algs[alg][0]} against lm (K2)")
+    print(f"[16 mesh algorithms] pose_optimization on K2's problem, N = 1000, stereo 0.5, on {dev}: " + "; ".join(
+        f"{alg} pose error against lm (K2) {e:.3g} (bound {ALGORITHM_TOL}), {ms:.3f} ms per solve (CUDA events, "
+        f"plain torch), device {dev_ms:.3f} ms in {ops} kernels and copies (torch.profiler)"
+        for alg, (e, ms, dev_ms, ops) in algs.items()) + f"; lm: K2 call {k2['call_ms']:.4f} ms, device "
+        f"{k2['device_ms']:.4f} ms (phase 4)")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1517,7 +1821,8 @@ def main() -> int:
     del slam
     loop_launches, loop = timed(12, phase_loop, torch, dev, card)
     runs += [loop_launches, timed(13, phase_async_loop, torch, dev, card, loop),
-             timed(14, phase_eight, torch, dev, card), timed(15, phase_datasets, torch, dev, card)]
+             timed(14, phase_eight, torch, dev, card), timed(15, phase_datasets, torch, dev, card),
+             timed(16, phase_mesh, torch, dev, card, loop, k2)]
     launches = {name: sum(r[name] for r in runs) for name in runs[0]}
     for r in runs:
         _check(all(r.values()), f"a kernel of the main path was never launched: {r}")
@@ -1531,7 +1836,7 @@ def main() -> int:
          "replaces": "orbslam2commentedbyxcm_tpu/ops/pallas_poseopt.py:300",
          "launches": launches["pose_optimization_fused"], **k2},
     ]
-    print(f"[16 total] {time.perf_counter() - t0:.1f} s; by phase: "
+    print(f"[17 total] {time.perf_counter() - t0:.1f} s; by phase: "
           + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

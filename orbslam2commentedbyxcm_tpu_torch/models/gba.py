@@ -13,9 +13,13 @@ thread (src/LoopClosing.cc):
 
 The solve is ops/optim.bundle_adjustment over every good keyframe (the
 origin fixed), 10 plain iterations in chunks of 3 with the stop event polled
-between chunks. The snapshot is taken by the caller under the map lock; the
-solve holds no lock; write-back takes the lock with a timeout, so a stop
-raised while it waits cannot deadlock against the thread that raised it.
+between chunks. With a shard mesh (`mesh=`, parallel/mesh.ShardMesh on the
+same device) a problem of at least `dist_min_points` points is solved by
+the landmark-sharded Schur-CG of parallel/dist_ba instead
+(parallel/system_bridge), counted in `n_distributed`. The snapshot is taken
+by the caller under the map lock; the solve holds no lock; write-back takes
+the lock with a timeout, so a stop raised while it waits cannot deadlock
+against the thread that raised it.
 
 The solve runs on the System's device from its own thread. On CUDA both
 threads use the default stream, so the card runs their kernels in issue
@@ -33,16 +37,24 @@ import numpy as np
 import torch
 
 from orbslam2commentedbyxcm_tpu_torch.models.local_mapping import assemble_ba_problem, solve_ba_problem
+from orbslam2commentedbyxcm_tpu_torch.parallel.mesh import same_device
+from orbslam2commentedbyxcm_tpu_torch.parallel.system_bridge import solve_ba_problem_dist
 
 
 class GlobalBA:
-    def __init__(self, world_map, camera, map_lock, n_iters: int = 10, chunk: int = 3, device=None):
+    def __init__(self, world_map, camera, map_lock, n_iters: int = 10, chunk: int = 3, device=None, mesh=None,
+                 dist_min_points: int = 2048):
         self.map = world_map
         self.camera = camera
         self.lock = map_lock
         self.n_iters = n_iters
         self.chunk = chunk
         self.device = world_map.device if device is None else torch.device(device)
+        if mesh is not None and not same_device(mesh.device, self.device):
+            raise ValueError(f"the mesh is on {mesh.device}, global BA on {self.device}")
+        self.mesh = mesh
+        self.dist_min_points = dist_min_points
+        self.n_distributed = 0
         self._thread: threading.Thread | None = None
         self._stop = threading.Event()   # the current run's stop flag
         self._ctl = threading.Lock()     # serializes abort() / launch()
@@ -122,11 +134,18 @@ class GlobalBA:
         # (no Huber, no relabel) iterations in chunks
         chunks = tuple((min(self.chunk, self.n_iters - s), False) for s in range(0, self.n_iters, self.chunk))
         t0 = time.perf_counter()
-        res = solve_ba_problem(problem, self.camera, self.device, chunks, abort_check=stop.is_set,
-                               relabel_between=False)
-        out_poses, out_points = res.poses.cpu().numpy(), res.points.cpu().numpy()
+        distributed = self.mesh is not None and len(problem["pids"]) >= self.dist_min_points
+        if distributed:
+            res = solve_ba_problem_dist(problem, self.camera, self.mesh, n_iters=self.n_iters, chunk=self.chunk,
+                                        abort_check=stop.is_set)
+            out_poses, out_points = res.poses, res.points
+            self.n_distributed += 1
+        else:
+            res = solve_ba_problem(problem, self.camera, self.device, chunks, abort_check=stop.is_set,
+                                   relabel_between=False)
+            out_poses, out_points = res.poses.cpu().numpy(), res.points.cpu().numpy()
         stats = {"seconds": time.perf_counter() - t0, "poses": len(problem["kf_slot"]),
-                 "points": len(problem["pids"]), "chunks": len(chunks)}
+                 "points": len(problem["pids"]), "chunks": len(chunks), "distributed": distributed}
         if stop.is_set() or idx != self.full_ba_idx:
             return
         # write-back under the map lock (reference :732-809)

@@ -17,6 +17,11 @@ src/LoopClosing.cc):
                        (ops/posegraph) and a transient abortable global BA
                        (models/gba, the reference's GBA thread, :634)
 
+With a shard mesh (`mesh=`, parallel/mesh.ShardMesh) an essential graph of
+at least `dist_min_vertices` keyframes is solved edge-sharded over it
+(parallel/dist_posegraph, counted in `stats["posegraph_distributed"]`), and
+global BA gets the mesh too (models/gba).
+
 Device work (ops/sim3solver, ops/posegraph, the projection matcher of
 models/tracking) runs on the map's device; the host keeps the group
 bookkeeping and the graph edges. The JAX package pads every batch to a
@@ -52,6 +57,7 @@ from orbslam2commentedbyxcm_tpu_torch.models.gba import GlobalBA
 from orbslam2commentedbyxcm_tpu_torch.models.tracking import project_and_match
 from orbslam2commentedbyxcm_tpu_torch.ops import bow, matching, posegraph, sim3solver
 from orbslam2commentedbyxcm_tpu_torch.ops.twoview import draw_samples
+from orbslam2commentedbyxcm_tpu_torch.parallel.system_bridge import solve_pose_graph_dist
 
 
 def _sim3_to_se3(m: np.ndarray) -> np.ndarray:
@@ -122,7 +128,7 @@ class LoopClosing:
     CAND_CAP = 5  # consistent candidates tried per keyframe (the reference tries all, one by one)
 
     def __init__(self, world_map, camera, map_lock, keyframe_db=None, vocabulary=None, fix_scale: bool = False,
-                 covisibility_consistency_th: int = 3, device=None):
+                 covisibility_consistency_th: int = 3, device=None, mesh=None, dist_min_vertices: int = 256):
         self.map = world_map
         self.camera = camera
         self.db = keyframe_db
@@ -135,7 +141,7 @@ class LoopClosing:
         self.n_loops_closed = 0
         self.stats = {"db_candidates": 0, "consistent": 0, "sim3_tried": 0, "bow_match_fail": 0,
                       "ransac_fail": 0, "refine_fail": 0, "sim3_ok": 0, "guided_fail": 0,
-                      "cooldown_skip": 0}
+                      "cooldown_skip": 0, "posegraph_distributed": 0}
         # per-candidate cooldown after a geometric rejection: an appearance-
         # similar but geometrically wrong candidate resurfaces on nearly every
         # keyframe; it is skipped for the next few keyframes and retried after
@@ -146,7 +152,9 @@ class LoopClosing:
         self.closure_splits: list[dict] = []
         # the transient abortable GBA (reference :634) writes back under the
         # map lock
-        self.gba = GlobalBA(world_map, camera, map_lock, device=self.device)
+        self.mesh = mesh
+        self.dist_min_vertices = dist_min_vertices
+        self.gba = GlobalBA(world_map, camera, map_lock, device=self.device, mesh=mesh)
 
     def _tensor(self, a, dtype=None):
         return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(self.device)
@@ -598,10 +606,15 @@ class LoopClosing:
         if not edge_i:
             return
 
-        res = posegraph.solve_pose_graph(
-            self._tensor(poses, np.float32), self._tensor(fixed), self._tensor(edge_i, np.int64),
-            self._tensor(edge_j, np.int64), self._tensor(np.stack(meas)),
-            torch.ones(len(edge_i), dtype=torch.bool, device=self.device), n_iters=20)
+        if self.mesh is not None and k >= self.dist_min_vertices:
+            res = solve_pose_graph_dist(poses.astype(np.float32), fixed, np.asarray(edge_i), np.asarray(edge_j),
+                                        np.stack(meas), np.ones(len(edge_i), bool), self.mesh, n_iters=20)
+            self.stats["posegraph_distributed"] += 1
+        else:
+            res = posegraph.solve_pose_graph(
+                self._tensor(poses, np.float32), self._tensor(fixed), self._tensor(edge_i, np.int64),
+                self._tensor(edge_j, np.int64), self._tensor(np.stack(meas)),
+                torch.ones(len(edge_i), dtype=torch.bool, device=self.device), n_iters=20)
         out = res.poses.cpu().numpy()
         self.last_split.update(eg_vertices=k, eg_edges=len(edge_i), eg_iterations=res.iterations)
 

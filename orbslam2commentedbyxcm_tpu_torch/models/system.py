@@ -35,8 +35,12 @@ JAX package's npz format; a loaded System comes up LOST and relocalizes.
 `activate_localization_mode` freezes the map and tracks with the
 visual-odometry fallback.
 
-The multi-device mesh belongs to a later slice and raises
-NotImplementedError naming its ROADMAP.md Queue 1 item.
+`mesh=` (a parallel/mesh.ShardMesh on the System's device, e.g.
+`parallel.mesh.make_mesh(8, device="cuda")`) routes global BA (from 2048
+points) and the essential graph (from 256 keyframes) through the sharded
+solvers of parallel/ (models/gba, models/loop_closing). The System runs in
+one process: a mesh over a torch.distributed group would have every rank
+run the whole System in lockstep, which no code here does.
 """
 
 from __future__ import annotations
@@ -60,6 +64,7 @@ from orbslam2commentedbyxcm_tpu_torch.models.tracking import Tracking, TrackingC
 from orbslam2commentedbyxcm_tpu_torch.ops import bow
 from orbslam2commentedbyxcm_tpu_torch.ops.orb import ORBExtractor
 from orbslam2commentedbyxcm_tpu_torch.ops.stereo import stereo_match_frame
+from orbslam2commentedbyxcm_tpu_torch.parallel.mesh import same_device
 from orbslam2commentedbyxcm_tpu_torch.utils.camera import Camera
 from orbslam2commentedbyxcm_tpu_torch.utils.geometry import rot_to_quat
 from orbslam2commentedbyxcm_tpu_torch.utils.tracing import span
@@ -69,10 +74,6 @@ class Sensor(enum.Enum):
     MONOCULAR = 0
     STEREO = 1
     RGBD = 2
-
-
-def _not_ported(what: str, item: int):
-    raise NotImplementedError(f"{what} is not ported to the PyTorch package yet (ROADMAP.md Queue 1 item {item})")
 
 
 class _LazyVocabTrainer:
@@ -125,11 +126,12 @@ class System:
         init_feature_boost: float = 2.0,  # monocular initialization only
         device="cuda",
     ):
-        if mesh is not None:
-            _not_ported("the multi-device mesh", 6)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("System(device='cuda'): no CUDA device is available")
+        if mesh is not None and not same_device(mesh.device, self.device):
+            raise ValueError(f"System(mesh=): the mesh is on {mesh.device}, the System on {self.device}")
+        self.mesh = mesh
         self.camera = camera
         self.sensor = sensor
         self.cfg = config or TrackingConfig()
@@ -206,7 +208,7 @@ class System:
         if self._enable_loop_closing:
             self.loop_closing = LoopClosing(self.map, self.camera, keyframe_db=self.keyframe_db,
                                             vocabulary=self.vocabulary, fix_scale=self.sensor != Sensor.MONOCULAR,
-                                            map_lock=self.map_lock, device=self.device)
+                                            map_lock=self.map_lock, device=self.device, mesh=self.mesh)
             if isinstance(self.local_mapping, AsyncMapping):
                 # reference: LoopClosing on its own thread (src/System.cc:105-111)
                 self._loop_worker = AsyncLoopClosing(self.loop_closing, self.map_lock)

@@ -3,13 +3,16 @@ optimization (reference Optimizer::PoseOptimization, src/Optimizer.cc:
 299-502) and Schur-complement bundle adjustment (LocalBundleAdjustment
 :524-870, BundleAdjustment :41-296).
 
-Counterpart of `pose_optimization` (algorithm="lm") and `bundle_adjustment`
-in orbslam2commentedbyxcm_tpu/ops/optim.py. For CUDA tensors the whole 4 x 10
+Counterpart of `pose_optimization` and `bundle_adjustment` in
+orbslam2commentedbyxcm_tpu/ops/optim.py. For CUDA tensors the whole 4 x 10 LM
 pose solve is one launch of the hand-written kernel in csrc/poseopt.cu
 (ops/poseopt_kernel); `pose_optimization_plain` is its plain twin and follows
-the JAX package's XLA path. The twin's LM loop runs a fixed n_iters steps per
+the JAX package's XLA path. The twin's loop runs a fixed n_iters steps per
 round and masks every update once the round has converged, which gives the
-while-loop's result without reading a flag back to the host.
+while-loop's result without reading a flag back to the host. The twin also
+runs g2o's other two algorithms, Gauss-Newton and Powell's dogleg, which the
+JAX package runs on XLA and never in its Pallas kernel: `pose_optimization`
+hands them to the twin on the tensors' device.
 
 `bundle_adjustment` is plain torch, as it is XLA in the JAX package. Its
 block sums are `segment_sum`s in float32 (the JAX package writes them as
@@ -33,6 +36,7 @@ from orbslam2commentedbyxcm_tpu_torch.utils.geometry import hat, se3_exp
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815
+ALGORITHMS = ("lm", "gn", "dogleg")  # the pose solve's (g2o's three)
 
 
 def segment_sum(values: torch.Tensor, index: torch.Tensor, n: int) -> torch.Tensor:
@@ -120,23 +124,55 @@ def pose_optimization(
     n_iters: int = 10,
     algorithm: str = "lm",
 ) -> PoseOptResult:
-    """Motion-only BA: 4 rounds x <= 10 LM iterations, Huber in rounds 0-1,
-    chi2 inlier relabeling between rounds. Runs through ops/poseopt_kernel:
-    the CUDA kernel for CUDA tensors, the plain twin for CPU tensors.
+    """Motion-only BA: 4 rounds x <= 10 iterations, Huber in rounds 0-1,
+    chi2 inlier relabeling between rounds.
+
+    algorithm: 'lm' (adaptive-lambda Levenberg, the reference's g2o
+    OptimizationAlgorithmLevenberg) runs through ops/poseopt_kernel: the CUDA
+    kernel for CUDA tensors, the plain twin for CPU tensors. 'gn'
+    (Gauss-Newton) and 'dogleg' (Powell trust region), g2o's other two
+    algorithms, run in the plain torch solve on the tensors' device, as the
+    JAX package runs them on XLA and never in its Pallas kernel.
     """
+    if algorithm not in ALGORITHMS:
+        raise ValueError(f"unknown algorithm: {algorithm}")
     if algorithm != "lm":
-        raise NotImplementedError(f"algorithm={algorithm!r}: only 'lm' is ported")
+        return pose_optimization_plain(t_cw, pts_w, obs, mask, inv_sigma2, fx, fy, cx, cy, bf,
+                                       n_rounds=n_rounds, n_iters=n_iters, algorithm=algorithm)
     cam = tuple(float(c) for c in (fx, fy, cx, cy, bf))
     return PoseOptResult(*pose_optimization_fused(
         t_cw, pts_w, obs, mask, inv_sigma2, *cam, n_rounds=n_rounds, n_iters=n_iters
     ))
 
 
+def _dogleg_step(h, g, radius, eye6):
+    """Powell's dogleg step for the model g.dx + dx.H.dx / 2 within the trust
+    radius: the Gauss-Newton step if it fits, else the scaled steepest-descent
+    step, else the point on the path between them at distance `radius`."""
+    h_gn = -torch.linalg.solve_ex(h + 1e-8 * eye6, g[:, None])[0][:, 0]
+    alpha = (g @ g) / torch.clamp(g @ (h @ g), min=1e-20)
+    h_sd = -alpha * g
+    n_gn, n_sd = torch.linalg.norm(h_gn), torch.linalg.norm(h_sd)
+    d = h_gn - h_sd
+    aa = torch.clamp(d @ d, min=1e-20)
+    bb = 2.0 * (h_sd @ d)
+    cc = (h_sd @ h_sd) - radius * radius
+    beta = (-bb + torch.sqrt(torch.clamp(bb * bb - 4 * aa * cc, min=0.0))) / (2 * aa)
+    blend = h_sd + torch.clamp(beta, 0.0, 1.0) * d
+    return torch.where(n_gn <= radius, h_gn,
+                       torch.where(n_sd >= radius, h_sd * (radius / torch.clamp(n_sd, min=1e-20)), blend))
+
+
 def pose_optimization_plain(
     t_cw, pts_w, obs, mask, inv_sigma2, fx, fy, cx, cy, bf,
-    n_rounds: int = 4, n_iters: int = 10,
+    n_rounds: int = 4, n_iters: int = 10, algorithm: str = "lm",
 ) -> PoseOptResult:
-    """The pose kernel's plain torch twin, on any device."""
+    """The pose kernel's plain torch twin (algorithm 'lm'), and the
+    Gauss-Newton and dogleg solves, on any device. `lam` is the LM damping
+    for 'lm', the trust radius for 'dogleg' (starting at 1), unused for 'gn',
+    whose undamped step stops the round once it fails."""
+    if algorithm not in ALGORITHMS:
+        raise ValueError(f"unknown algorithm: {algorithm}")
     dev = pts_w.device
     stereo_all = obs[:, 2] >= 0
     delta2 = torch.where(stereo_all, CHI2_STEREO, CHI2_MONO).float()
@@ -169,22 +205,39 @@ def pose_optimization_plain(
         use_huber = rnd < 2
         active = inliers.float()
         err_best, h, g = eval_point(t_cw, active, use_huber)
-        lam = torch.tensor(1e-3, dtype=torch.float32, device=dev)
+        lam = torch.tensor(1.0 if algorithm == "dogleg" else 1e-3, dtype=torch.float32, device=dev)
         done = torch.tensor(False, device=dev)
         t_best = t_cw
         for _ in range(n_iters):
-            h_lm = h + lam * torch.diag_embed(torch.diagonal(h)) + 1e-8 * eye6
-            dx = -torch.linalg.solve_ex(h_lm, g[:, None])[0][:, 0]
+            if algorithm == "lm":
+                dx = -torch.linalg.solve_ex(h + lam * torch.diag_embed(torch.diagonal(h)) + 1e-8 * eye6,
+                                            g[:, None])[0][:, 0]
+            elif algorithm == "gn":
+                dx = -torch.linalg.solve_ex(h + 1e-8 * eye6, g[:, None])[0][:, 0]
+            else:
+                dx = _dogleg_step(h, g, lam, eye6)
             t_new = se3_exp(dx) @ t_best
             err_new, h_new, g_new = eval_point(t_new, active, use_huber)
             accept = err_new < err_best
             take = accept & ~done
+            if algorithm == "lm":
+                lam_new = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0), 1e-8, 1e6)
+                stuck = lam_new >= 1e6
+            elif algorithm == "gn":
+                lam_new, stuck = lam, ~accept  # the undamped step failed: stop
+            else:
+                # err is sum(w r^2) (no 1/2): gradient 2g, Hessian 2H
+                predicted = -2.0 * (dx @ g) - dx @ (h @ dx)
+                rho = (err_best - err_new) / torch.clamp(predicted, min=1e-20)
+                lam_new = torch.where(rho > 0.75, torch.maximum(lam, 3.0 * torch.linalg.norm(dx)), lam)
+                lam_new = torch.clamp(torch.where(rho < 0.25, lam_new * 0.5, lam_new), 1e-8, 1e6)
+                stuck = lam_new <= 1e-8
             t_best = torch.where(take, t_new, t_best)
             h = torch.where(take, h_new, h)
             g = torch.where(take, g_new, g)
             err_best = torch.where(take, err_new, err_best)
-            lam = torch.where(done, lam, torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0), 1e-8, 1e6))
-            done = done | (torch.max(torch.abs(dx)) < 1e-6) | (lam >= 1e6)
+            lam = torch.where(done, lam, lam_new)
+            done = done | (torch.max(torch.abs(dx)) < 1e-6) | stuck
         t_cw = t_best
         inliers = mask & (robust_c2(t_cw) <= delta2)
 

@@ -179,28 +179,47 @@ def optimize_pose_graph_cg(
     n_iters: int = 20,
     cg_iters: int = 100,
     cg_tol: float = 1e-5,
+    mesh=None,
 ) -> PoseGraphResult:
     """Matrix-free LM: each CG iteration applies H = J^T J edge-wise (two
     batched (E, 7, 7) products + index adds) with a block-Jacobi (per-vertex
     7x7) preconditioner; the normal equations are never formed. The CG loop
     freezes its state once the residual is below tolerance (the JAX
-    while-loop's exit) and reads that flag back every 10 iterations."""
+    while-loop's exit) and reads that flag back every 10 iterations.
+
+    With `mesh` (a parallel/mesh.ShardMesh) the edge arrays are this
+    process's edge shards, (n_local, Es, ...), and every edge-wise sum is
+    taken per shard and reduced over the mesh with `mesh.psum`: one (K, 7)
+    reduction per CG iteration, the (K, 7, 7) block diagonal, the gradient
+    and the cost per evaluation; the damping is added to the reduced
+    product (parallel/dist_posegraph)."""
     k = poses.shape[0]
     dev = poses.device
-    ei, ej = edge_i.long(), edge_j.long()
+    n_sh = 1 if mesh is None else edge_i.shape[0]
+    ei, ej = edge_i.reshape(-1).long(), edge_j.reshape(-1).long()
+    edge_meas = edge_meas.reshape(-1, 4, 4)
     free = (~fixed).float()
-    w_e = _edge_weights(edge_mask, edge_weight)
+    w_e = _edge_weights(edge_mask.reshape(-1), edge_weight)
     eye7 = torch.eye(7, device=dev)
     diag7 = torch.arange(7, device=dev)
 
     eij = torch.cat([ei, ej])
+    if mesh is not None:  # (shard, vertex) row of each edge end
+        shard = torch.arange(n_sh, device=dev).repeat_interleave(len(ei) // n_sh)
+        eij_sh = torch.cat([shard, shard]) * k + eij
 
     def scatter7(vals_i, vals_j):
-        return segment_sum(torch.cat([vals_i, vals_j]), eij, k)
+        vals = torch.cat([vals_i, vals_j])
+        if mesh is None:
+            return segment_sum(vals, eij, k)
+        return mesh.psum(segment_sum(vals, eij_sh, n_sh * k).reshape((n_sh, k) + vals.shape[1:]))
+
+    def edge_total(x):
+        return torch.sum(x) if mesh is None else mesh.psum(x.reshape(n_sh, -1).sum(1))
 
     def eval_point(p):
         r, j_i, j_j = _edge_res_jac(p[ei], p[ej], edge_meas)
-        err = torch.sum(torch.sum(r * r, dim=-1) * w_e)
+        err = edge_total(torch.sum(r * r, dim=-1) * w_e)
         j_i = j_i * (free[ei] * w_e)[:, None, None]
         j_j = j_j * (free[ej] * w_e)[:, None, None]
         r_w = r * w_e[:, None]

@@ -7,6 +7,8 @@ installed, without the repository's conftest:
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -338,3 +340,97 @@ def test_run_dataset_on_card(cuda_device, tmp_path):
     assert poseopt_kernel.pose_optimization_fused.launches - k2 >= 2 * 11
     traj = np.loadtxt(str(tmp_path / "CameraTrajectory.txt"))
     assert traj.shape == (12, 8) and np.isfinite(traj).all()
+
+
+def _ba_problem(seed=0, n_poses=8, n_pts=400, stereo=True):
+    """tests/test_optim.make_ba_problem's scene with the port's se3_exp:
+    poses along a line, every point seen by every pose (stereo edges), poses
+    and points perturbed, the first pose fixed, 5% of the edges masked."""
+    rng = np.random.default_rng(seed)
+    pts = np.stack([rng.uniform(-4, 4, n_pts), rng.uniform(-3, 3, n_pts), rng.uniform(5, 12, n_pts)], -1)
+    pts = pts.astype(np.float32)
+    poses = se3_exp(torch.tensor([[0.25 * k, 0.02 * k, 0.01 * k, 0.0, 0.03 * k, 0.0] for k in range(n_poses)])).numpy()
+    fx, fy, cx, cy, bf = CAM
+    op, opt_, ouv = [], [], []
+    for k in range(n_poses):
+        pc = pts @ poses[k, :3, :3].T + poses[k, :3, 3]
+        u, v = fx * pc[:, 0] / pc[:, 2] + cx, fy * pc[:, 1] / pc[:, 2] + cy
+        ur = u - bf / pc[:, 2] if stereo else np.full_like(u, -1.0)
+        ouv.append(np.stack([u, v, ur], -1) + rng.normal(0, 0.5, (n_pts, 3)) * [1, 1, stereo])
+        op.append(np.full(n_pts, k))
+        opt_.append(np.arange(n_pts))
+    poses_0 = poses.copy()
+    poses_0[1:] = se3_exp(torch.from_numpy(rng.normal(0, 0.02, (n_poses - 1, 6)).astype(np.float32))).numpy() \
+        @ poses[1:]
+    fixed = np.zeros(n_poses, bool)
+    fixed[0] = True
+    mask = rng.random(n_poses * n_pts) >= 0.05
+    return {"poses": poses_0, "pose_fixed": fixed, "points": pts + rng.normal(0, 0.05, pts.shape).astype(np.float32),
+            "point_valid": np.ones(n_pts, bool), "op": np.concatenate(op), "opt": np.concatenate(opt_),
+            "ouv": np.concatenate(ouv).astype(np.float32), "omask": mask,
+            "osig": np.ones(n_poses * n_pts, np.float32), "pids": np.arange(n_pts)}
+
+
+def _graph_problem(k=40, e=160, seed=0):
+    """tests/test_dist_posegraph.py's construction with the port's sim3_exp."""
+    from orbslam2commentedbyxcm_tpu_torch.utils.geometry import sim3_exp
+
+    rng = np.random.default_rng(seed)
+    poses = np.tile(np.eye(4, dtype=np.float32), (k, 1, 1))
+    poses[:, 0, 3] = 0.3 * np.arange(k)
+    poses[:, 1, 3] = 0.1 * np.sin(np.arange(k))
+    ei = np.concatenate([np.arange(k - 1), rng.integers(0, k, e - k + 1)]).astype(np.int32)
+    ej = np.concatenate([np.arange(1, k), rng.integers(0, k, e - k + 1)]).astype(np.int32)
+    ej = np.where(ei == ej, (ej + 1) % k, ej)
+    meas = np.einsum("eij,ejk->eik", poses[ej], np.linalg.inv(poses[ei])).astype(np.float32)
+    fixed = np.zeros(k, bool)
+    fixed[0] = True
+    tang = np.zeros((k, 7), np.float32)
+    tang[1:] = rng.normal(0, 0.03, (k - 1, 7))
+    p0 = np.einsum("kij,kjl->kil", sim3_exp(torch.from_numpy(tang)).numpy(), poses).astype(np.float32)
+    return p0, fixed, ei, ej, meas, np.ones(e, bool)
+
+
+def _dist_solves(device, problem, graph, n_shards):
+    from orbslam2commentedbyxcm_tpu_torch.parallel import system_bridge
+    from orbslam2commentedbyxcm_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(n_shards, device=device)
+    ba = system_bridge.solve_ba_problem_dist(problem, SimpleNamespace(**dict(zip(("fx", "fy", "cx", "cy", "bf"), CAM))),
+                                             mesh)
+    g = system_bridge.solve_pose_graph_dist(*graph, mesh)
+    return ba.poses, ba.points, ba.cost, g.poses.cpu().numpy()
+
+
+def test_dist_solvers_on_card_repeat_and_match_cpu(cuda_device):
+    """The 4-shard Schur-CG global BA and the edge-sharded pose graph on the
+    card: bit-equal to themselves on a repeat (every block sum in a fixed
+    order), and within float32 regrouping of the same solves on the CPU
+    (poses 1e-4, points 2e-3, cost 1e-5 relative; graph 1e-4)."""
+    problem, graph = _ba_problem(), _graph_problem()
+    first = _dist_solves(cuda_device, problem, graph, 4)
+    again = _dist_solves(cuda_device, problem, graph, 4)
+    for a, b in zip(first, again):
+        assert np.array_equal(a, b)
+    cpu = _dist_solves("cpu", problem, graph, 4)
+    np.testing.assert_allclose(first[0], cpu[0], atol=1e-4)
+    np.testing.assert_allclose(first[1], cpu[1], atol=2e-3)
+    assert abs(first[2] - cpu[2]) <= 1e-5 * cpu[2]
+    np.testing.assert_allclose(first[3], cpu[3], atol=1e-4)
+
+
+@pytest.mark.parametrize("algorithm", ["gn", "dogleg"])
+def test_gn_dogleg_on_card(cuda_device, algorithm):
+    """Gauss-Newton and dogleg run the plain solve on the card (K2 is not
+    launched): within 2e-3 of the kernel's LM pose and of the CPU's solve."""
+    args, t_true = _pose_problem(np.random.default_rng(0), 1000, 0.5)
+    targs = [torch.from_numpy(a).to(cuda_device) for a in args]
+    lm = optim.pose_optimization(*targs, *CAM).t_cw.cpu().numpy()
+    before = poseopt_kernel.pose_optimization_fused.launches
+    res = optim.pose_optimization(*targs, *CAM, algorithm=algorithm)
+    assert poseopt_kernel.pose_optimization_fused.launches == before
+    cpu = optim.pose_optimization(*[torch.from_numpy(a) for a in args], *CAM, algorithm=algorithm)
+    t = res.t_cw.cpu().numpy()
+    assert np.abs(t - t_true).max() < 5e-3
+    assert np.abs(t - lm).max() < 2e-3 and np.abs(t - cpu.t_cw.numpy()).max() < 2e-3
+    assert abs(int(res.n_inliers) - int(cpu.n_inliers)) <= 3

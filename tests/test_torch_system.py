@@ -14,6 +14,8 @@ held to the same accuracy class, not to equal numbers: both track at least
 N - 1 frames, the port's ATE (SE3 alignment) is at most 1.5 x the JAX ATE
 + 1 cm, keyframe counts agree within 1, valid map points within 15%."""
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -25,6 +27,7 @@ from orbslam2commentedbyxcm_tpu.utils.evaluation import ate_rmse as j_ate_rmse
 from orbslam2commentedbyxcm_tpu.utils.synth import BoxSequence as JBoxSequence
 from orbslam2commentedbyxcm_tpu_torch.models import system as tsystem
 from orbslam2commentedbyxcm_tpu_torch.models.tracking import TrackingConfig as TConfig
+from orbslam2commentedbyxcm_tpu_torch.parallel.mesh import make_mesh
 from orbslam2commentedbyxcm_tpu_torch.utils import convert
 from orbslam2commentedbyxcm_tpu_torch.utils.evaluation import ate_rmse, positions_from_tcw
 from orbslam2commentedbyxcm_tpu_torch.utils.tracing import Tracer
@@ -91,14 +94,19 @@ def test_system_matches_jax(sensor, tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
-    """Only the mesh raises, naming its ROADMAP.md item; the async pipeline,
-    the tracer, loop closing (with the shipped vocabulary or the lazy
-    trainer, which is wired with loop closing off too), map save / load,
-    monocular SLAM, a vocabulary and localization mode are ported: they
-    construct and run."""
+    """Every option is ported: a shard mesh on the System's device is
+    handed to loop closing and global BA, and only a mesh on another device
+    raises (the System never moves tensors to it); the async pipeline, the
+    tracer, loop closing (with the shipped vocabulary or the lazy trainer,
+    which is wired with loop closing off too), map save / load, monocular
+    SLAM, a vocabulary and localization mode construct and run."""
     cam = convert.camera_from_jax(CAM)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6"):
-        tsystem.System(cam, tsystem.Sensor.RGBD, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="the mesh is on meta"):
+        tsystem.System(cam, tsystem.Sensor.RGBD, mesh=SimpleNamespace(device=torch.device("meta")), device="cpu")
+    mesh = make_mesh(2, device="cpu")
+    meshed = tsystem.System(cam, tsystem.Sensor.RGBD, vocabulary="bootstrap", mesh=mesh, device="cpu")
+    assert meshed.loop_closing.mesh is meshed.loop_closing.gba.mesh is mesh
+    assert (meshed.loop_closing.dist_min_vertices, meshed.loop_closing.gba.dist_min_points) == (256, 2048)
     for kw in (dict(), dict(enable_loop_closing=False)):  # the JAX package's defaults, and without loop closing
         lazy = tsystem.System(cam, tsystem.Sensor.RGBD, device="cpu", **kw)
         assert lazy.vocabulary is None and type(lazy.local_mapping.loop_closer).__name__ == "_LazyVocabTrainer"

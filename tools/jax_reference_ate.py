@@ -6,6 +6,7 @@ JAX_ATE_LOOP (each port bound is 1.5 x that + 1 cm).
     python3 tools/jax_reference_ate.py rgbd stereo
     python3 tools/jax_reference_ate.py loop      # several minutes per frame count
     python3 tools/jax_reference_ate.py dataset [tum kitti euroc]   # ~1-1.5 min each
+    python3 tools/jax_reference_ate.py mesh      # several minutes
 
 Runs the JAX System at 640x480 with default_camera(640, 480) and 1000
 features. rgbd / stereo / mono use chip_smoke's keyframe policy and no loop
@@ -36,12 +37,21 @@ rendered by the JAX package's writer into a temporary directory, then run
 through the JAX CLI, examples/run_dataset.py, on the CPU with
 chip_smoke.DATASET_FLAGS; prints the CLI's tracked frames and ATE (SE3).
 
+mesh is chip_smoke's phase 16 (JAX_ATE_MESH): phase 12's 130-frame run with
+System(mesh=make_mesh(8)) over 8 virtual CPU devices, the essential graph's
+gate lowered to 0 vertices (LoopClosing.dist_min_vertices) and global BA's
+left at its default of 2048 points; prints the tracked frames, the loops,
+how many solves went through the mesh and the ATE both ways, as loop does.
+
 Needs the JAX package; the port is not imported.
 """
 
 import os
 import sys
 import time
+
+if sys.argv[1:2] == ["mesh"]:  # 8 virtual CPU devices, set before jax is imported
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=8").strip()
 
 import jax
 import numpy as np
@@ -90,14 +100,17 @@ def run(which: str):
 LOOP_CONFIG = dict(max_frames_between_kf=4, kf_tracked_ratio=0.95, motion_search_radius=20.0)
 
 
-def loop_run(n: int, loop_closing: bool):
+def loop_run(n: int, loop_closing: bool, mesh=None):
     """One pass of phase 12's run over an n-frame orbit -> (System, frames
     tracked, frame of the first closed loop or None, frame trajectory as
-    {frame index: Tcw}, ground truth)."""
+    {frame index: Tcw}, ground truth). With a mesh, the essential graph's
+    gate is lowered to 0 vertices (phase 16)."""
     cam = default_camera(640, 480)
     seq = BoxSequence(camera=cam, n_frames=n, turns=1.3)
     s = jsystem.System(cam, jsystem.Sensor.RGBD, config=TrackingConfig(**LOOP_CONFIG), vocabulary="bootstrap",
-                       enable_loop_closing=loop_closing)
+                       enable_loop_closing=loop_closing, mesh=mesh)
+    if mesh is not None:
+        s.loop_closing.dist_min_vertices = 0
     tracked, loop_frame = 0, None
     for i in range(n):
         tracked += s.track_rgbd(seq.render(i), seq.depth_map(i), i / 30.0) is not None
@@ -169,6 +182,25 @@ def run_loop(counts):
             return
 
 
+def run_mesh(n: int = 130):
+    from orbslam2commentedbyxcm_tpu.parallel.dist_ba import make_mesh
+
+    t0 = time.perf_counter()
+    s, tracked, loop_frame, traj, fixed, seq = loop_run(n, True, mesh=make_mesh(8))
+    lc = s.loop_closing
+    print(f"mesh: {n} frames, make_mesh(8) on {len(jax.devices())} CPU devices, JAX CPU {tracked}/{n} tracked, "
+          f"{lc.n_loops_closed} loops closed (first at frame {loop_frame}), {len(s.map.good_keyframes())} "
+          f"keyframes, essential graphs through the mesh {lc.stats['posegraph_distributed']}, global BAs through "
+          f"the mesh {lc.gba.n_distributed} of {lc.gba.n_completed} completed, {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if lc.n_loops_closed:
+        m = s.map
+        kf_id, loop_kf_id = min((kf.kf_id, le) for kf in m.keyframes.values() for le in kf.loop_edges
+                                if le < kf.kf_id)
+        edge = tuple(int(round(m.keyframes[k].timestamp * 30)) for k in (kf_id, loop_kf_id))
+        _loop_report("mesh", n, (traj, fixed), seq, loop_frame, edge)
+
+
 def run_dataset(formats):
     import re
     import subprocess
@@ -202,6 +234,8 @@ if __name__ == "__main__":
     args = sys.argv[1:] or ["mono"]
     if args[0] == "dataset":
         run_dataset(args[1:] or ["tum", "kitti", "euroc"])
+    elif args[0] == "mesh":
+        run_mesh()
     elif args[0] == "loop":
         run_loop([int(args[1])] if len(args) > 1 else range(LOOP_FIRST, LOOP_LAST + 1, LOOP_STEP))
     else:
