@@ -8,13 +8,15 @@ checks each against its plain torch twin on the card, and drives the port the
 way a user would: the per-frame tracking step, then the System's synchronous
 RGB-D, stereo and monocular SLAM, relocalization with the shipped vocabulary,
 localization mode, loop closing with map save and load, the async pipeline,
-the figure-eight loop gate, the three dataset formats read from disk and the
-sharded global solvers, in the System and across two processes.
-Phases, each printing one line:
+the figure-eight loop gate, the three dataset formats read from disk, the
+sharded global solvers, in the System and across two processes, and the host
+C++ runtime (map index, keyframe database, DBoW2 parser) against its Python
+twins. Phases, each printing one line:
 
   1. device   the card's name and power limit (nvidia-smi), TF32 flags
   2. build    nvcc build of both kernels (one nvcc per source, in parallel), seconds;
-              g++ build of the PNG decoder's row filters
+              g++ build of the host runtime (PNG row filters, map index,
+              inverted file, DBoW2 parser; one g++ per source, in parallel)
   3. K1       one launch of the fused frontend over the 8-level pyramid of a
               640x480 frame vs the twin, level by level (bit-equal), and each
               level alone; device time (torch.profiler), call time (CUDA
@@ -90,7 +92,19 @@ Phases, each printing one line:
               ones, a 4-shard repeat bit-equal; 2 processes x 4 shards (gloo,
               both on this card, torchrun variables) against 1 x 8, ms per
               solve, psums and bytes; gn and dogleg against lm (K2) at N=1000
- 17. kernels  one JSON line: per kernel, launches summed over phases 6-16,
+ 17. index    the host C++ runtime (native/) against its Python twins, each
+              warmed first and the order alternated: phase 12's orbit to its
+              loop (frames 0-99), synchronous, twice with index="python" and
+              twice with index="native", trajectories, keyframes,
+              covisibility, spanning tree, observations (order included) and
+              points_seen_by bit-equal, frame times and the index queries'
+              host ms (tracer spans); the keyframe database over phase 12's
+              final keyframes with the shipped vocabulary, both indexes'
+              candidates equal, median ms per add and per query; the DBoW2
+              parser on a file of ORBvoc.txt's shape (k 10, L 6), median
+              seconds, the Python parser's once, bit-equal to it there and
+              at L 4
+ 18. kernels  one JSON line: per kernel, launches summed over phases 6-17,
               error, times, bound
 
 The last line is {"ok": true, "device": {...}}. Any failed phase exits non-zero
@@ -304,7 +318,7 @@ def phase_build():
     info = kernels.build_info
     ptxas = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln or "spill" in ln]
     t0 = time.perf_counter()
-    kernels.host_library()  # the PNG decoder's row filters (g++), for phase 15
+    kernels.host_library()  # the host runtime (g++): PNG row filters, map index, inverted file, parser
     print(f"[2 build] nvcc {'built' if info['built'] else 'cached'} {Path(info['path']).name} "
           f"in {info['seconds']:.3f} s; host library (g++) in {time.perf_counter() - t0:.3f} s | "
           + " ; ".join(ptxas))
@@ -1121,7 +1135,7 @@ def phase_loop(torch, dev, card: str):
     sync = {"ordinary": plain_ms, "keyframe": kf_ms, "loop": [rows[loop_frame][1]], "ate": ate,
             "keyframes": len(slam.map.good_keyframes()), "gba": g,
             "essential_graph": {k: split[k] for k in ("essential_graph", "eg_vertices", "eg_edges", "eg_iterations")}}
-    return launches, {"cam": cam, "seq": seq, "frames": frames, "sync": sync}
+    return launches, {"cam": cam, "seq": seq, "frames": frames, "sync": sync, "map": slam.map}
 
 @contextlib.contextmanager
 def _timed_calls(torch):
@@ -1782,6 +1796,263 @@ def phase_mesh(torch, dev, card: str, loop, k2):
     return launches
 
 
+N_INDEX = 100              # phase 17: phase 12's orbit up to its loop (frames 0-99)
+N_INDEX_WARM = 20          # each index's untimed warm-up run (frames 0-19)
+INDEX_ORDER = ("python", "native", "native", "python")  # the timed runs, in this order
+DB_REPEATS = 7             # new databases per index, the order alternated
+PARSE_REPEATS = 3          # native parses and imports at ORBvoc.txt's shape
+DBOW2_FULL = (10, 6)       # ORBvoc.txt's shape: k = 10, L = 6 (1,111,110 nodes)
+DBOW2_CHECK = (10, 4)      # the parsers' bit-equality file (11,110 nodes)
+INDEX_SPANS = ("map_index_points", "map_index_observers")
+
+
+def write_dbow2_text(path, k: int, depth: int, seed: int) -> int:
+    """A DBoW2 text vocabulary (TemplatedVocabulary::saveToTextFile's
+    layout): a full k-ary tree of `depth` levels in breadth-first order, one
+    line per node "parent is_leaf d0 .. d31 weight", descriptors and leaf
+    weights (10 significant digits, 0 inside the tree) from `seed`. Integers
+    are zero-padded to a fixed width, which loadFromTextFile and int() read
+    alike, so numpy writes the whole file in one pass. Returns the node count."""
+    rng = np.random.default_rng(seed)
+    sizes = [k**lv for lv in range(1, depth + 1)]
+    starts = np.cumsum([1] + sizes)  # starts[lv - 1]: the first id of level lv
+    n = int(sum(sizes))
+    parent = np.concatenate([np.zeros(k, np.int64)] + [
+        starts[lv - 2] + np.arange(sizes[lv - 1], dtype=np.int64) // k for lv in range(2, depth + 1)])
+    leaf = np.zeros(n, np.int64)
+    leaf[-sizes[-1]:] = 1
+    desc = rng.integers(0, 256, (n, 32), dtype=np.int64)
+    weight = np.where(leaf == 1, rng.integers(0, 10**10, n, dtype=np.int64), 0)  # d.ddddddddd
+
+    def digits(v, width):
+        return np.stack([48 + (v // 10**j) % 10 for j in range(width - 1, -1, -1)], axis=-1).astype(np.uint8)
+
+    col = lambda ch: np.full((n, 1), ord(ch), np.uint8)  # noqa: E731
+    desc_cols = np.concatenate([np.full((n, 32, 1), 32, np.uint8), digits(desc, 3)], axis=2).reshape(n, 128)
+    lines = np.concatenate([digits(parent, 7), col(" "), digits(leaf, 1), desc_cols, col(" "),
+                            digits(weight // 10**9, 1), col("."), digits(weight % 10**9, 9), col("\n")], axis=1)
+    with open(path, "wb") as f:
+        f.write(f"{k} {depth} 0 0\n".encode())
+        f.write(lines.tobytes())
+    return n
+
+
+def _index_run(torch, dev, cam, frames, index: str, timer, tracer):
+    """System(RGBD, vocabulary="bootstrap", index=`index`, `tracer`) over
+    `frames`, synchronous: (System, rows of _track_timed, whether each frame
+    made a keyframe, seconds)."""
+    from orbslam2commentedbyxcm_tpu_torch.models.system import Sensor, System
+
+    t0 = time.perf_counter()
+    slam = System(cam, Sensor.RGBD, config=_loop_config(), vocabulary="bootstrap", tracer=tracer, device=dev,
+                  index=index)
+    rows, kf_new = [], []
+    for i, (img, depth) in enumerate(frames):
+        before = slam.map.next_kf_id
+        _track_timed(slam.track_rgbd, rows, (img, depth, i / 30.0), timer)
+        kf_new.append(slam.map.next_kf_id > before)
+    slam.shutdown()
+    return slam, rows, kf_new, time.perf_counter() - t0
+
+
+def _same_map(a, b, what: str) -> None:
+    """Hold two Systems' results to the bit: trajectory, keyframes, their
+    covisibility (weights and order), spanning tree, observations (each
+    point's observers in order, and the map index's observer rows) and
+    points_seen_by over every keyframe."""
+    ta, tb = a.frame_trajectory(), b.frame_trajectory()
+    _check(len(ta) == len(tb) and all(x[0] == y[0] and np.array_equal(x[1], y[1]) for x, y in zip(ta, tb)),
+           f"{what}: trajectories differ")
+    _check(sorted(a.map.keyframes) == sorted(b.map.keyframes), f"{what}: keyframe ids differ")
+    for k, kf in a.map.keyframes.items():
+        other = b.map.keyframes[k]
+        _check(list(kf.covis.items()) == list(other.covis.items()), f"{what}: keyframe {k}'s covisibility differs")
+        _check((kf.parent, kf.children, kf.bad) == (other.parent, other.children, other.bad),
+               f"{what}: keyframe {k}'s spanning tree differs")
+    _check([(p, list(o.items())) for p, o in a.map.obs.items()] == [(p, list(o.items())) for p, o in b.map.obs.items()],
+           f"{what}: observations or their order differ")
+    pids = np.arange(max(a.map.n_points, b.map.n_points), dtype=np.int64)
+    _check(all(np.array_equal(x, y) for x, y in zip(a.map._observer_csr(pids), b.map._observer_csr(pids))),
+           f"{what}: the map index's observer rows differ")
+    every = sorted(a.map.keyframes)
+    _check(np.array_equal(a.map.points_seen_by(every), b.map.points_seen_by(every)),
+           f"{what}: points_seen_by(all keyframes) differs")
+
+
+def _index_ms(records, frames) -> tuple[list, list]:
+    """Per frame of `frames`: host ms in points_seen_by + _observer_csr, and
+    in update_connections (tracer spans)."""
+    q = [1e3 * sum(records[i]["spans"].get(n, 0.0) for n in INDEX_SPANS) for i in frames]
+    c = [1e3 * records[i]["spans"].get("map_index_connections", 0.0) for i in frames]
+    return q, c
+
+
+def _database_queries(voc, kfs, world, index: str):
+    """Every keyframe of `kfs` into a new KeyFrameDatabase(voc, index), then
+    its loop query (its covisible keyframes excluded, the lowest score among
+    them the minimum, as LoopClosing asks) and its relocalization query:
+    (results, (ms of the first add, median ms of the others), ms per
+    query)."""
+    from orbslam2commentedbyxcm_tpu_torch.models.keyframe_database import KeyFrameDatabase
+
+    db = KeyFrameDatabase(voc, index=index)
+    add_ms = []
+    for kf in kfs:
+        t0 = time.perf_counter()
+        db.add(kf.kf_id, *kf.bow_vec)
+        add_ms.append(1e3 * (time.perf_counter() - t0))
+    out = []
+    t0 = time.perf_counter()
+    for kf in kfs:
+        connected = set(kf.covis)
+        min_score = min((db.score(kf.kf_id, nb) for nb in connected), default=0.0)
+        out.append((min_score, db.detect_loop_candidates(kf.kf_id, *kf.bow_vec, min_score, connected, world),
+                    db.detect_relocalization_candidates(*kf.bow_vec, world)))
+    return out, (add_ms[0], statistics.median(add_ms[1:])), 1e3 * (time.perf_counter() - t0) / (2 * len(kfs))
+
+
+def _same_parse(a, b) -> bool:
+    return a[:2] == b[:2] and all(x.dtype == y.dtype and np.array_equal(x.view(np.uint8), y.view(np.uint8))
+                                  for x, y in zip(a[2:], b[2:]))
+
+
+def phase_index(torch, dev, card: str, loop):
+    """The host C++ runtime (native/) against its Python twins on the card's
+    host, every timing from this one call, each index warmed first and the
+    order alternated: (a) phase 12's orbit to its loop, synchronous, with
+    index="python" and index="native" (the default) in the order python,
+    native, native, python, all four held to the bit, with the index
+    queries' host ms from the tracer pooled over each index's two runs; (b)
+    the keyframe database over phase 12's final keyframes with the shipped
+    785,724-word vocabulary, both indexes' candidates equal, medians over
+    DB_REPEATS builds and query passes; (c) the DBoW2 text parser on a file
+    of ORBvoc.txt's shape, bit-equal to the Python parser there and on a
+    smaller one, medians of PARSE_REPEATS native parses and imports, the
+    Python parser once. Returns the first native run's kernel launches."""
+    import os
+    import tempfile
+
+    from orbslam2commentedbyxcm_tpu_torch import native
+    from orbslam2commentedbyxcm_tpu_torch.ops import bow
+    from orbslam2commentedbyxcm_tpu_torch.utils import vocab_tools
+    from orbslam2commentedbyxcm_tpu_torch.utils.tracing import Tracer
+
+    cam, frames = loop["cam"], loop["frames"][:N_INDEX]
+    k1c, k2c = _launch_counters()
+    timer = _EventTimer(torch)
+    for index in ("python", "native"):  # warm-up, untimed
+        _index_run(torch, dev, cam, frames[:N_INDEX_WARM], index, timer, None)
+    tracers = {"python": Tracer(), "native": Tracer()}
+    runs, launches = [], None
+    for index in INDEX_ORDER:
+        first_native = index == "native" and launches is None
+        if first_native:
+            torch.cuda.synchronize()
+            k1c.launches = k2c.launches = 0
+        runs.append((index, *_index_run(torch, dev, cam, frames, index, timer, tracers[index])))
+        if first_native:
+            launches = {"fused_frontend": k1c.launches, "pose_optimization_fused": k2c.launches}
+    ref = next(r for r in runs if r[0] == "native")
+    _check(ref[1].map.index == "native" and ref[1].keyframe_db.index == "native", "index: the native run is not native")
+    _check(all(r[0] is not None for r in ref[2]), f"index: {sum(r[0] is None for r in ref[2])} frames lost")
+    for j, (index, slam, _, kf_new, _) in enumerate(runs):
+        _check(slam.map.index == index, f"index: run {j} is not on index {index}")
+        _check(kf_new == ref[3], f"index: run {j} ({index}) made keyframes on other frames")
+        if slam is not ref[1]:
+            _same_map(ref[1], slam, f"index: run {j} ({index}) against the first native run")
+    kf_new = ref[3]
+    plain = [i for i in range(1, N_INDEX) if not kf_new[i]]
+    kfs = [i for i in range(1, N_INDEX) if kf_new[i]]
+    parts = []
+    for tag in ("python", "native"):
+        tracer = tracers[tag]
+        rec, spans = tracer.frame_records(), tracer.stats()["spans"]
+        _check(len(rec) == 2 * N_INDEX, f"index: {len(rec)} tracer frames on {tag}")
+        rows = [row for r in runs if r[0] == tag for row in r[2]]
+        both = lambda fr: [r * N_INDEX + i for r in (0, 1) for i in fr]  # noqa: E731
+        q_plain, _ = _index_ms(rec, both(plain))
+        q_kf, c_kf = _index_ms(rec, both(kfs))
+        calls = "; ".join(f"{name} {spans[span]['n']} calls, p50 {spans[span]['p50_ms']:.4f} mean "
+                          f"{spans[span]['mean_ms']:.4f}" for name, span in (
+                              ("points_seen_by", "map_index_points"), ("_observer_csr", "map_index_observers"),
+                              ("update_connections", "map_index_connections")))
+        parts.append(f"{tag}: frame ms ordinary (2 x {len(plain)}) {_stats([rows[i][1] for i in both(plain)])}, "
+                     f"keyframe (2 x {len(kfs)}) {_stats([rows[i][1] for i in both(kfs)])}; points_seen_by + "
+                     f"_observer_csr host ms per ordinary frame {_stats(q_plain)}, per keyframe frame "
+                     f"{_stats(q_kf)}; update_connections host ms per keyframe frame {_stats(c_kf)}; host ms per "
+                     f"call: {calls}")
+    print(f"[17 index] {card} | phase 12's orbit frames 0-{N_INDEX - 1}, System(RGBD, vocabulary=bootstrap, "
+          f"tracer, device={dev}), each index warmed on frames 0-{N_INDEX_WARM - 1}, then runs "
+          + ", ".join(f"{r[0]} {r[4]:.1f} s" for r in runs)
+          + f": trajectories, keyframes ({len(ref[1].map.keyframes)}), covisibility, spanning tree, observations "
+          f"(order included) and points_seen_by(all keyframes) bit-equal; {len(ref[1].map.good_keyframes())} good "
+          f"keyframes, {ref[1].map.n_valid_points()} points | " + " | ".join(parts))
+    del runs, ref
+
+    # (b) the keyframe database over phase 12's final keyframes
+    world = loop["map"]
+    voc = bow.bootstrap_vocabulary()
+    kf_list = sorted((kf for kf in world.good_keyframes() if kf.bow_vec is not None), key=lambda k: k.kf_id)
+    _check(len(kf_list) >= 20, f"database: {len(kf_list)} keyframes with BoW vectors in phase 12's map")
+    res = {index: _database_queries(voc, kf_list, world, index)[0] for index in ("python", "native")}  # warm-up
+    _check(res["native"] == res["python"], "database: the native index's candidates or minimum scores differ")
+    first_ms, add_ms, q_ms = ({"python": [], "native": []} for _ in range(3))
+    for rep in range(DB_REPEATS):
+        for index in (("python", "native") if rep % 2 == 0 else ("native", "python")):
+            got, (a0, a), q = _database_queries(voc, kf_list, world, index)
+            _check(got == res["python"], f"database: repeat {rep} on {index} differs")
+            first_ms[index].append(a0)
+            add_ms[index].append(a)
+            q_ms[index].append(q)
+    n_loop = sum(len(r[1]) for r in res["native"])
+    n_reloc = sum(len(r[2]) for r in res["native"])
+    _check(n_reloc >= len(kf_list), f"database: {n_reloc} relocalization candidates for {len(kf_list)} queries")
+    med = lambda xs: f"{statistics.median(xs):.4f} [{min(xs):.4f}-{max(xs):.4f}]"  # noqa: E731
+    print(f"[17 database] {card} | KeyFrameDatabase over phase 12's {len(kf_list)} final keyframes, "
+          f"vocabulary bootstrap ({voc.n_words} words, {sum(len(k.bow_vec[0]) for k in kf_list)} postings): "
+          f"detect_loop_candidates and detect_relocalization_candidates of every keyframe equal on both indexes "
+          f"({n_loop} loop, {n_reloc} relocalization candidates), minimum scores bit-equal | host ms, median "
+          f"[min-max] of {DB_REPEATS} new databases per index after one warm-up each, order alternated: per query "
+          f"(the group stage included) python {med(q_ms['python'])}, native {med(q_ms['native'])}; add: a new "
+          f"database's first python {med(first_ms['python'])}, native {med(first_ms['native'])}, the median of "
+          f"the other {len(kf_list) - 1} python {med(add_ms['python'])}, native {med(add_ms['native'])}")
+
+    # (c) the DBoW2 text parser
+    with tempfile.TemporaryDirectory() as tmp:
+        small = os.path.join(tmp, "check.txt")
+        write_dbow2_text(small, *DBOW2_CHECK, seed=1)
+        got = native.parse_dbow2_text(small)
+        _check(_same_parse(got, vocab_tools._parse_dbow2_text_py(small)),
+               "parser: the native parse differs from the Python parser's")
+        full = os.path.join(tmp, "orbvoc_shape.txt")
+        t0 = time.perf_counter()
+        n_nodes = write_dbow2_text(full, *DBOW2_FULL, seed=0)
+        write_s = time.perf_counter() - t0
+        mib = os.path.getsize(full) / 2**20
+        parse_s, import_s = [], []
+        for _ in range(PARSE_REPEATS):
+            t0 = time.perf_counter()
+            parsed = native.parse_dbow2_text(full)
+            parse_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            imported = vocab_tools.import_dbow2_text(full)
+            import_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        py_parsed = vocab_tools._parse_dbow2_text_py(full)
+        py_s = time.perf_counter() - t0
+    _check(len(parsed[2]) == n_nodes and imported.n_words == DBOW2_FULL[0] ** DBOW2_FULL[1],
+           f"parser: {len(parsed[2])} nodes, {imported.n_words} words")
+    _check(_same_parse(parsed, py_parsed), "parser: the native parse differs from the Python parser's at full size")
+    med_s = lambda xs: f"{statistics.median(xs):.3f} s [{min(xs):.3f}-{max(xs):.3f}]"  # noqa: E731
+    print(f"[17 parser] {card} | DBoW2 text at ORBvoc.txt's shape (k {DBOW2_FULL[0]}, L {DBOW2_FULL[1]}, {n_nodes} "
+          f"nodes, {mib:.1f} MiB, written in {write_s:.1f} s), median [min-max] of {PARSE_REPEATS}, each "
+          f"parse before its import: native.parse_dbow2_text {med_s(parse_s)}, import_dbow2_text "
+          f"{med_s(import_s)} ({imported.n_words} words); the Python parser once {py_s:.3f} s | bit-equal to the "
+          f"Python parser there and on k {DBOW2_CHECK[0]}, L {DBOW2_CHECK[1]} ({len(got[2])} nodes)")
+    k1c.launches, k2c.launches = launches["fused_frontend"], launches["pose_optimization_fused"]
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1822,7 +2093,7 @@ def main() -> int:
     loop_launches, loop = timed(12, phase_loop, torch, dev, card)
     runs += [loop_launches, timed(13, phase_async_loop, torch, dev, card, loop),
              timed(14, phase_eight, torch, dev, card), timed(15, phase_datasets, torch, dev, card),
-             timed(16, phase_mesh, torch, dev, card, loop, k2)]
+             timed(16, phase_mesh, torch, dev, card, loop, k2), timed(17, phase_index, torch, dev, card, loop)]
     launches = {name: sum(r[name] for r in runs) for name in runs[0]}
     for r in runs:
         _check(all(r.values()), f"a kernel of the main path was never launched: {r}")
@@ -1836,7 +2107,7 @@ def main() -> int:
          "replaces": "orbslam2commentedbyxcm_tpu/ops/pallas_poseopt.py:300",
          "launches": launches["pose_optimization_fused"], **k2},
     ]
-    print(f"[17 total] {time.perf_counter() - t0:.1f} s; by phase: "
+    print(f"[18 total] {time.perf_counter() - t0:.1f} s; by phase: "
           + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

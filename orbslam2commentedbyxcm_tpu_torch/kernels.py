@@ -1,5 +1,8 @@
 """Build and bind the hand-written CUDA kernels in csrc/, and the host C++
-helper beside them (csrc/png_unfilter.cpp, the PNG decoder's row filters).
+runtime beside them: the PNG decoder's row filters (csrc/png_unfilter.cpp),
+the Map's observation and covisibility index (csrc/mapgraph.cpp), the
+keyframe database's inverted file (csrc/invindex.cpp) and the DBoW2 text
+parser (csrc/vocloader.cpp), bound in `native/`.
 
 The sources are compiled at first use with nvcc, one process per source, all
 started together, and linked into one shared library with a plain C
@@ -9,7 +12,8 @@ of the sources and flags, so an edited source is rebuilt and a stale library
 is never loaded. Nothing here runs at import time: this module imports on
 machines without a CUDA toolkit, and only `library()` needs nvcc.
 `host_library()` builds the .cpp sources the same way with the host C++
-compiler (g++), which the CPU machines have too.
+compiler (g++), which the CPU machines have too, and raises if it cannot:
+nothing falls back to Python in its place.
 
 No --use_fast_math: the frontend kernel's blur must round as its torch twin
 does, and the pose solve relies on IEEE division, sqrt, sin, cos.
@@ -36,6 +40,7 @@ NVCC_FLAGS = [
 ]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L, _D = ctypes.c_int64, ctypes.c_double
 _SIGNATURES = {
     # int orb_frontend_set_taps(taps[9] (host))
     "orb_frontend_set_taps": [_P],
@@ -46,10 +51,43 @@ _SIGNATURES = {
     "pose_opt": [_P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P, _P, _P],
 }
 
-HOST_FLAGS = ["-std=c++17", "-O3", "-fPIC", "-shared"]
+HOST_FLAGS = ["-std=c++17", "-O3", "-fPIC", "-pthread"]
+# name: (restype, argtypes); pointers go as addresses (ndarray.ctypes.data)
 _HOST_SIGNATURES = {
     # int png_unfilter(src, dst, height, stride, bpp)
-    "png_unfilter": [_P, _P, _I, _I, _I],
+    "png_unfilter": (_I, [_P, _P, _I, _I, _I]),
+    # mapgraph.cpp: handle = mg_new(); mg_free / mg_clear(h)
+    "mg_new": (_P, []),
+    "mg_free": (_I, [_P]),
+    "mg_clear": (_I, [_P]),
+    # mg_add(h, pid, kf, feat); feat = mg_erase(h, pid, kf); mg_erase_point(h, pid)
+    "mg_add": (_I, [_P, _L, _L, _L]),
+    "mg_erase": (_L, [_P, _L, _L]),
+    "mg_erase_point": (_I, [_P, _L]),
+    # rows = mg_covisibility(h, kf, map_pt, n, out_kf, out_w, cap)
+    "mg_covisibility": (_L, [_P, _L, _P, _L, _P, _P, _L]),
+    # rows = mg_points_seen_by(h, kfs, n, out, cap)
+    "mg_points_seen_by": (_L, [_P, _P, _L, _P, _L]),
+    # rows = mg_export_observers(h, pids, n, out_idx, out_kf, out_feat, cap)
+    "mg_export_observers": (_L, [_P, _P, _L, _P, _P, _P, _L]),
+    # invindex.cpp: handle = ii_new(); ii_free / ii_clear(h); n = ii_size(h)
+    "ii_new": (_P, []),
+    "ii_free": (_I, [_P]),
+    "ii_clear": (_I, [_P]),
+    "ii_size": (_L, [_P]),
+    # ii_add(h, kf, words, vals, n); ii_erase(h, kf); rows = ii_keyframes(h, out, cap)
+    "ii_add": (_I, [_P, _L, _P, _P, _L]),
+    "ii_erase": (_I, [_P, _L]),
+    "ii_keyframes": (_L, [_P, _P, _L]),
+    # ii_score(h, kf1, kf2, &out); ii_score_vec(h, words, vals, n, kf, &out)
+    "ii_score": (_I, [_P, _L, _L, _P]),
+    "ii_score_vec": (_I, [_P, _P, _P, _L, _L, _P]),
+    # rows = ii_query(h, words, vals, n, exclude, n_excl, min_score, out_kf, out_score, cap)
+    "ii_query": (_L, [_P, _P, _P, _L, _P, _L, _D, _P, _P, _L]),
+    # vocloader.cpp: handle = voc_parse(buf, len, info); voc_fill(handle, parent, leaf, desc, weight)
+    "voc_parse": (_P, [_P, _L, _P]),
+    "voc_fill": (_I, [_P, _P, _P, _P, _P]),
+    "voc_free": (_I, [_P]),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -147,16 +185,17 @@ def check(err: int, name: str) -> None:
 
 
 def host_library() -> ctypes.CDLL:
-    """The host C++ helpers (csrc/*.cpp), built with g++ at first use into
-    `build/kernels/libslam_host_<hash>.so` and bound with ctypes (a foreign
-    call releases the GIL)."""
+    """The host C++ runtime (csrc/*.cpp), built with g++ at first use into
+    `build/kernels/libslam_host_<hash>.so`, one compiler process per source,
+    all started together, and bound with ctypes (a foreign call releases the
+    GIL). Raises RuntimeError without a compiler or when a build fails."""
     global _host_lib
     with _host_lock:
         if _host_lib is not None:
             return _host_lib
         cxx = shutil.which("g++") or shutil.which("c++")
         if cxx is None:
-            raise RuntimeError("no host C++ compiler (g++) found: the PNG decoder's row filters need one")
+            raise RuntimeError("no host C++ compiler (g++) found: the port's host runtime (csrc/*.cpp) needs one")
         sources = sorted(CSRC.glob("*.cpp"))
         # a library built by another compiler or for another machine (and so
         # perhaps another C library) is never loaded: both name the file
@@ -166,18 +205,31 @@ def host_library() -> ctypes.CDLL:
             path.parent.mkdir(parents=True, exist_ok=True)
             work = tempfile.mkdtemp(dir=path.parent)
             try:
+                jobs = []
+                for src in sources:
+                    obj = os.path.join(work, src.stem + ".o")
+                    cmd = [cxx, *HOST_FLAGS, "-c", "-o", obj, str(src)]
+                    jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                                            text=True)))
+                log, failed = "", []
+                for cmd, _, proc in jobs:
+                    log += proc.communicate()[0]
+                    if proc.returncode != 0:
+                        failed.append(f"{' '.join(cmd)} ({proc.returncode})")
+                if failed:
+                    raise RuntimeError(f"{cxx} failed: " + "; ".join(failed) + "\n" + log)
                 tmp = os.path.join(work, path.name)
-                proc = subprocess.run([cxx, *HOST_FLAGS, "-o", tmp, *map(str, sources)],
+                proc = subprocess.run([cxx, *HOST_FLAGS, "-shared", "-o", tmp, *(obj for _, obj, _ in jobs)],
                                       capture_output=True, text=True)
                 if proc.returncode != 0:
-                    raise RuntimeError(f"{cxx} failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-                os.replace(tmp, path)
+                    raise RuntimeError(f"{cxx} link failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+                os.replace(tmp, path)  # atomic: a process building at the same time never loads a partial file
             finally:
                 shutil.rmtree(work, ignore_errors=True)
         lib = ctypes.CDLL(str(path))
-        for name, argtypes in _HOST_SIGNATURES.items():
+        for name, (restype, argtypes) in _HOST_SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = restype
         _host_lib = lib
         return lib

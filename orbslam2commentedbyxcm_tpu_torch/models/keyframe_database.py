@@ -1,27 +1,36 @@
 """BoW inverted-file keyframe database (reference src/KeyFrameDatabase.cc).
 
-Counterpart of orbslam2commentedbyxcm_tpu/models/keyframe_database.py with
-its pure-Python backend folded in (the JAX package can also run the inverted
-file in its C++ library; the port keeps the Python path, as its Map does). Word id ->
-keyframe ids; loop candidates use shared-word counting, the 0.8 x max common
-words filter, a minimum score and covisibility-group accumulated scoring with
-0.75 x best-group retention (DetectLoopCandidates, :79-198); relocalization
-candidates are the same query without the minimum score and the connected
-exclusion (:206-309), returned best group first.
+Counterpart of orbslam2commentedbyxcm_tpu/models/keyframe_database.py. Word
+id -> keyframe ids; loop candidates use shared-word counting, the 0.8 x max
+common words filter, a minimum score and covisibility-group accumulated
+scoring with 0.75 x best-group retention (DetectLoopCandidates, :79-198);
+relocalization candidates are the same query without the minimum score and
+the connected exclusion (:206-309), returned best group first.
+
+`KeyFrameDatabase(vocabulary, index="native")`, the default, keeps the
+inverted file and runs its query prefilters in the host C++ index
+(native.InvertedIndex, csrc/invindex.cpp), as the JAX package does when its
+library builds; `index="python"` runs `_PyInvertedFile`, the dict twin with
+the same surface. There is no silent fallback between them. Both return the
+same candidates in the same (first-shared-word) order with bit-equal scores.
+The covisibility-group stage stays here: it reads the live covisibility
+graph.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from orbslam2commentedbyxcm_tpu_torch import native
+from orbslam2commentedbyxcm_tpu_torch.models.map import INDEXES
 from orbslam2commentedbyxcm_tpu_torch.ops import bow
 
 
-class KeyFrameDatabase:
-    """Inverted file: word -> keyframe ids, and each keyframe's BoW vector."""
+class _PyInvertedFile:
+    """Inverted file in dicts: word -> keyframe ids, and each keyframe's BoW
+    vector (the surface of native.InvertedIndex)."""
 
-    def __init__(self, vocabulary: bow.Vocabulary | None):
-        self.voc = vocabulary
+    def __init__(self):
         self.inverted: dict[int, list[int]] = {}
         self.vectors: dict[int, tuple[np.ndarray, np.ndarray]] = {}
 
@@ -46,20 +55,22 @@ class KeyFrameDatabase:
     def __len__(self):
         return len(self.vectors)
 
+    def kf_ids(self) -> list[int]:
+        return sorted(self.vectors)
+
     def score(self, kf1: int, kf2: int) -> float:
         a, b = self.vectors.get(kf1), self.vectors.get(kf2)
         if a is None or b is None:
             return 0.0
         return bow.l1_score(a[0], a[1], b[0], b[1])
 
-    def score_vec(self, vec, kf_id: int) -> float:
-        """Score an unregistered BoW vector against a stored keyframe."""
+    def score_vec(self, word_ids, values, kf_id: int) -> float:
         b = self.vectors.get(kf_id)
-        if vec is None or b is None:
+        if b is None:
             return 0.0
-        return bow.l1_score(vec[0], vec[1], b[0], b[1])
+        return bow.l1_score(word_ids, values, b[0], b[1])
 
-    def _query(self, word_ids, values, exclude, min_score):
+    def query(self, word_ids, values, exclude, min_score):
         """Keyframes sharing more than 0.8 x the most shared words, scored
         (L1) and kept at >= min_score, in first-shared-word order."""
         counts: dict[int, int] = {}
@@ -82,6 +93,41 @@ class KeyFrameDatabase:
                 kfs.append(kf_id)
                 scores.append(s)
         return kfs, scores
+
+
+class KeyFrameDatabase:
+    """The inverted file (native or Python, by `index`) and the candidate
+    queries over it."""
+
+    def __init__(self, vocabulary: bow.Vocabulary | None, index: str = "native"):
+        if index not in INDEXES:
+            raise ValueError(f"KeyFrameDatabase(index={index!r}): one of {INDEXES}")
+        self.voc = vocabulary
+        self.index = index
+        self._file = native.InvertedIndex() if index == "native" else _PyInvertedFile()
+
+    def add(self, kf_id: int, word_ids: np.ndarray, values: np.ndarray):
+        self._file.add(kf_id, word_ids, values)
+
+    def erase(self, kf_id: int):
+        self._file.erase(kf_id)
+
+    def clear(self):
+        self._file.clear()
+
+    def __len__(self):
+        return len(self._file)
+
+    def kf_ids(self) -> list[int]:
+        """The registered keyframe ids, ascending."""
+        return self._file.kf_ids()
+
+    def score(self, kf1: int, kf2: int) -> float:
+        return self._file.score(kf1, kf2)
+
+    def score_vec(self, vec, kf_id: int) -> float:
+        """Score an unregistered BoW vector against a stored keyframe."""
+        return 0.0 if vec is None else self._file.score_vec(vec[0], vec[1], kf_id)
 
     @staticmethod
     def _group_accumulate(scored, world_map) -> list[int]:
@@ -119,13 +165,13 @@ class KeyFrameDatabase:
                                connected: set[int], world_map) -> list[int]:
         """Loop candidates for the query keyframe, its covisible set excluded
         (DetectLoopCandidates)."""
-        kfs, scores = self._query(word_ids, values, set(connected) | {query_kf_id}, min_score)
+        kfs, scores = self._file.query(word_ids, values, set(connected) | {query_kf_id}, min_score)
         scored = self._live(kfs, scores, world_map)
         return self._group_accumulate(scored, world_map) if scored else []
 
     def detect_relocalization_candidates(self, word_ids, values, world_map) -> list[int]:
         """Relocalization candidates for a frame's BoW vector
         (DetectRelocalizationCandidates)."""
-        kfs, scores = self._query(word_ids, values, set(), -np.inf)
+        kfs, scores = self._file.query(word_ids, values, set(), -np.inf)
         scored = self._live(kfs, scores, world_map)
         return self._group_accumulate(scored, world_map) if scored else []

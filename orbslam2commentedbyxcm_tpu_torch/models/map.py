@@ -3,15 +3,25 @@
 Counterpart of orbslam2commentedbyxcm_tpu/models/map.py (reference src/Map.cc,
 src/MapPoint.cc, src/KeyFrame.cc:324-...). Landmarks live in flat numpy
 arrays, observations in a (point -> {kf: feat_idx}) dict index, and the
-covisibility graph / spanning tree are maintained per keyframe. The JAX
-package can mirror the observation index in a C++ library; the port keeps the
-dict path of that class (the path it takes without the library).
+covisibility graph / spanning tree are maintained per keyframe.
 
-One deliberate difference: `points_seen_by` returns sorted ids, where the JAX
-package's C++ index returns hash-set order. The order decides the local
+`Map(index="native")`, the default, mirrors the observation index in the
+host C++ graph (native.MapGraph, csrc/mapgraph.cpp), as the JAX package's
+Map does, and the hot queries read it: `update_connections` (covisibility
+counts), `_observer_csr` (the observers of many points) and
+`points_seen_by`. `index="python"` puts `_PyMapGraph` in its place, the
+plain twin with the same surface, which walks the dicts. The Map calls its
+index the same way on both. Both give the same results in the same order, so
+the map they build is the same map; `obs` stays the index that other readers
+use directly.
+
+Chosen differences from the JAX package's C++ index, which follows its hash
+containers: `points_seen_by` returns sorted ids (the order decides the local
 pack's slot order, argmin ties between points and which points fall past the
-4096-point local cap, so the port's runs are deterministic and its tests
-compare such sets as sets.
+4096-point local cap), and covisibility counts come out in first-seen order
+over the keyframe's `map_pt`, so `max()` breaks ties between equal weights as
+the dict path does. The port's runs are deterministic; its tests compare
+such sets with the JAX package's as sets.
 
 `Map.pack_points` packs points into fixed-capacity tensors on a device;
 `pack_points` and `map_pack_from_rgbd_frame` do the same for tensors that are
@@ -23,20 +33,69 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from orbslam2commentedbyxcm_tpu_torch import native
 from orbslam2commentedbyxcm_tpu_torch.models.frame import KeyFrame
 from orbslam2commentedbyxcm_tpu_torch.ops.orb import FrameFeatures
 from orbslam2commentedbyxcm_tpu_torch.utils.camera import Camera
 from orbslam2commentedbyxcm_tpu_torch.utils.geometry import se3_inverse
+from orbslam2commentedbyxcm_tpu_torch.utils.tracing import span
 
 _POINT_ARRAYS = (
     "pt_xyz", "pt_desc", "pt_normal", "pt_dmin", "pt_dmax", "pt_valid",
     "pt_ref_kf", "pt_first_kf", "pt_visible", "pt_found", "pt_replaced_by",
 )
 _MINUS_ONE = ("pt_ref_kf", "pt_first_kf", "pt_replaced_by")
+INDEXES = ("native", "python")
+
+
+class _PyMapGraph:
+    """native.MapGraph's surface over the Map's own dicts, the plain twin:
+    the queries walk `obs` and the keyframes' `map_pt`; the mutators do
+    nothing, because the Map writes `obs` itself."""
+
+    def __init__(self, world_map: Map):
+        self.map = world_map
+
+    def clear(self):
+        pass
+
+    def add(self, pid: int, kf_id: int, feat: int):
+        pass
+
+    def erase(self, pid: int, kf_id: int):
+        pass
+
+    def erase_point(self, pid: int):
+        pass
+
+    def covisibility(self, kf_id: int, map_pt: np.ndarray):
+        counter: dict[int, int] = {}
+        for pid in map_pt[map_pt >= 0]:
+            for other_id in self.map.obs.get(int(pid), {}):
+                if other_id != kf_id:
+                    counter[other_id] = counter.get(other_id, 0) + 1
+        return np.array(list(counter), np.int64), np.array(list(counter.values()), np.int64)
+
+    def points_seen_by(self, kf_ids) -> np.ndarray:
+        pids: set[int] = set()
+        for kf_id in kf_ids:
+            kf = self.map.keyframes.get(kf_id)
+            if kf is not None:
+                pids.update(int(p) for p in kf.map_pt[kf.map_pt >= 0])
+        return np.array(sorted(pids), np.int64)
+
+    def export_observers(self, pids: np.ndarray):
+        rows = [(i, k, f) for i, p in enumerate(pids) for k, f in self.map.obs.get(int(p), {}).items()]
+        if not rows:
+            return (np.zeros(0, np.int64),) * 3
+        a = np.asarray(rows, np.int64)
+        return a[:, 0], a[:, 1], a[:, 2]
 
 
 class Map:
-    def __init__(self, device, point_capacity: int = 1 << 14):
+    def __init__(self, device, point_capacity: int = 1 << 14, index: str = "native"):
+        if index not in INDEXES:
+            raise ValueError(f"Map(index={index!r}): one of {INDEXES}")
         cap = point_capacity
         self.device = torch.device(device)  # where pack_points puts its tensors
         self.pt_xyz = np.zeros((cap, 3), np.float32)
@@ -57,6 +116,10 @@ class Map:
         self.pt_version = 0
 
         self.obs: dict[int, dict[int, int]] = {}    # pid -> {kf_id: feat_idx}
+        self.index = index
+        # the C++ mirror of `obs`, or its Python twin that reads `obs`
+        self._graph = native.MapGraph() if index == "native" else _PyMapGraph(self)
+        self.tracer = None  # utils/tracing.Tracer: spans around the index queries
         self.keyframes: dict[int, KeyFrame] = {}
         self.next_kf_id = 0
         self.origin_kf_id = 0
@@ -109,6 +172,7 @@ class Map:
 
     def add_observation(self, pid: int, kf_id: int, feat_idx: int):
         self.obs[pid][kf_id] = feat_idx
+        self._graph.add(pid, kf_id, feat_idx)
         self.keyframes[kf_id].map_pt[feat_idx] = pid
 
     def erase_observation(self, pid: int, kf_id: int):
@@ -116,6 +180,7 @@ class Map:
         if o is None or kf_id not in o:
             return
         idx = o.pop(kf_id)
+        self._graph.erase(pid, kf_id)
         kf = self.keyframes.get(kf_id)
         if kf is not None and kf.map_pt[idx] == pid:
             kf.map_pt[idx] = -1
@@ -135,6 +200,7 @@ class Map:
             if kf is not None and kf.map_pt[idx] == pid:
                 kf.map_pt[idx] = -1
         self.obs.pop(pid, None)
+        self._graph.erase_point(pid)
 
     def replace_point(self, old_pid: int, new_pid: int):
         """MapPoint::Replace: merge old into new."""
@@ -144,6 +210,7 @@ class Map:
             kf = self.keyframes.get(kf_id)
             if kf_id not in self.obs.get(new_pid, {}):
                 self.obs[new_pid][kf_id] = idx
+                self._graph.add(new_pid, kf_id, idx)
                 if kf is not None:
                     kf.map_pt[idx] = new_pid
             elif kf is not None and kf.map_pt[idx] == old_pid:
@@ -154,6 +221,7 @@ class Map:
         self.pt_version += 1
         self.pt_replaced_by[old_pid] = new_pid
         self.obs.pop(old_pid, None)
+        self._graph.erase_point(old_pid)
         self.update_point_descriptor(new_pid)
 
     def resolve_replaced(self, pid: int) -> int:
@@ -174,6 +242,14 @@ class Map:
 
     def n_observations(self, pid: int) -> int:
         return len(self.obs.get(pid, {}))
+
+    def reindex(self):
+        """Rebuild the index from `obs` (after `obs` was assigned whole, as
+        a checkpoint load or a conversion does)."""
+        self._graph.clear()
+        for pid, o in self.obs.items():
+            for kf_id, feat in o.items():
+                self._graph.add(pid, kf_id, feat)
 
     # -- derived point attributes ----------------------------------------
 
@@ -222,12 +298,10 @@ class Map:
         self.pt_dmin[pid] = self.pt_dmax[pid] / (sf ** (ref.n_levels - 1))
 
     def _observer_csr(self, pids: np.ndarray):
-        """(pid_idx, kf_id, feat_idx) rows for all observations of `pids`."""
-        rows = [(i, k, f) for i, p in enumerate(pids) for k, f in self.obs.get(int(p), {}).items()]
-        if not rows:
-            return (np.zeros(0, np.int64),) * 3
-        a = np.asarray(rows, np.int64)
-        return a[:, 0], a[:, 1], a[:, 2]
+        """(pid_idx, kf_id, feat_idx) rows for all observations of `pids`:
+        `pids` order, then each point's observer order (int64)."""
+        with span(self.tracer, "map_index_observers"):
+            return self._graph.export_observers(pids)
 
     def update_points_batch(self, pids):
         """Vectorized MapPoint::UpdateNormalAndDepth over many points."""
@@ -314,12 +388,13 @@ class Map:
     def update_connections(self, kf: KeyFrame, min_weight: int = 15):
         """Rebuild kf's covisibility edges from shared map points and update
         the spanning tree (KeyFrame::UpdateConnections, src/KeyFrame.cc:324)."""
-        counter: dict[int, int] = {}
-        for pid in kf.map_pt[kf.map_pt >= 0]:
-            for other_id in self.obs.get(int(pid), {}):
-                if other_id != kf.kf_id:
-                    counter[other_id] = counter.get(other_id, 0) + 1
-        counter = {k: v for k, v in counter.items() if k in self.keyframes}
+        with span(self.tracer, "map_index_connections"):
+            self._update_connections(kf, min_weight)
+
+    def _update_connections(self, kf: KeyFrame, min_weight: int):
+        # shared points per other keyframe, in first-seen order
+        other, w = self._graph.covisibility(kf.kf_id, kf.map_pt)
+        counter = {k: v for k, v in zip(other.tolist(), w.tolist()) if k in self.keyframes}
         if not counter:
             return
         best_id, best_w = max(counter.items(), key=lambda kv: kv[1])
@@ -392,13 +467,9 @@ class Map:
 
     def points_seen_by(self, kf_ids) -> np.ndarray:
         """Valid points observed by any of `kf_ids`, as sorted ids."""
-        pids: set[int] = set()
-        for kf_id in kf_ids:
-            kf = self.keyframes.get(kf_id)
-            if kf is not None:
-                pids.update(int(p) for p in kf.map_pt[kf.map_pt >= 0])
-        out = np.array(sorted(pids), np.int64)
-        return out[self.pt_valid[out]] if len(out) else out
+        with span(self.tracer, "map_index_points"):
+            out = self._graph.points_seen_by(kf_ids)
+            return out[self.pt_valid[out]] if len(out) else out
 
     def pack_points(self, pids: np.ndarray, cap: int, device=None):
         """Point attributes for `pids` in capacity-`cap` tensors on `device`

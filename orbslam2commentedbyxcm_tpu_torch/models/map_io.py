@@ -6,8 +6,9 @@ compressed npz keys, so a checkpoint written by either package loads in the
 other: the landmark arrays, per-keyframe feature arrays, poses and graph
 (parent, loop edges, the stored pose relative to the parent of an erased
 keyframe), the observation index as flat triples, the frame trajectory and
-the vocabulary. Loading recomputes covisibility from the observations; the
-System re-registers the keyframes' BoW vectors.
+the vocabulary. Loading rebuilds the map's observation index (the C++
+mirror on the native index), recomputes covisibility from the observations;
+the System re-registers the keyframes' BoW vectors in its database.
 """
 
 from __future__ import annotations
@@ -58,12 +59,13 @@ def save_map(world_map: Map, path: str, vocabulary=None, trajectory=None):
     np.savez_compressed(path, **data)
 
 
-def load_map(path: str, scale_factor: float = 1.2, n_levels: int = 8, camera=None, *, device):
-    """-> (Map on `device`, Vocabulary or None, trajectory). Keyframes come
-    back with their frozen feature arrays, poses and graph; covisibility is
-    recomputed from the observations."""
+def load_map(path: str, scale_factor: float = 1.2, n_levels: int = 8, camera=None, *, device,
+             index: str = "native"):
+    """-> (Map on `device` with observation index `index`, Vocabulary or
+    None, trajectory). Keyframes come back with their frozen feature arrays,
+    poses and graph; covisibility is recomputed from the observations."""
     z = np.load(path, allow_pickle=True)
-    m = Map(device=device)
+    m = Map(device=device, index=index)
     n = len(z["pt_xyz"])
     m._ensure_capacity(n)
     m.n_points = n
@@ -98,6 +100,7 @@ def load_map(path: str, scale_factor: float = 1.2, n_levels: int = 8, camera=Non
     m.obs = {}
     for pid, kf_id, feat in zip(z["obs_pid"], z["obs_kf"], z["obs_feat"]):
         m.obs.setdefault(int(pid), {})[int(kf_id)] = int(feat)
+    m.reindex()
     for kf in m.keyframes.values():
         if not kf.bad:
             m.update_connections(kf)

@@ -41,6 +41,11 @@ points) and the essential graph (from 256 keyframes) through the sharded
 solvers of parallel/ (models/gba, models/loop_closing). The System runs in
 one process: a mesh over a torch.distributed group would have every rank
 run the whole System in lockstep, which no code here does.
+
+`index="native"` (the default) keeps the Map's observation index and the
+keyframe database's inverted file in the host C++ runtime (native/);
+`index="python"` runs both on their dict twins. The two make the same
+decisions, so they build the same map.
 """
 
 from __future__ import annotations
@@ -125,6 +130,7 @@ class System:
         mesh=None,
         init_feature_boost: float = 2.0,  # monocular initialization only
         device="cuda",
+        index: str = "native",
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -136,7 +142,8 @@ class System:
         self.sensor = sensor
         self.cfg = config or TrackingConfig()
         self.tracer = tracer
-        self.map = Map(device=self.device)
+        self.index = index
+        self.map = self._new_map()
         # pre-reset trajectory segments, materialized as absolute poses
         self._archived_trajectory: list = []
         self._archived_kf_trajectory: list = []
@@ -203,7 +210,7 @@ class System:
             self._loop_worker.shutdown()
             self._loop_worker = None
         self.vocabulary.device_tree(self.device)
-        self.keyframe_db = KeyFrameDatabase(self.vocabulary)
+        self.keyframe_db = KeyFrameDatabase(self.vocabulary, index=self.index)
         self.map.erase_hooks.append(self.keyframe_db.erase)
         if self._enable_loop_closing:
             self.loop_closing = LoopClosing(self.map, self.camera, keyframe_db=self.keyframe_db,
@@ -363,14 +370,20 @@ class System:
         # before the map (and its reference keyframes) is dropped
         self._archived_trajectory = self.frame_trajectory()
         self._archived_kf_trajectory = self.keyframe_trajectory()
-        self._install_map(Map(device=self.device), [])
+        self._install_map(self._new_map(), [])
         self.tracking.state = TrackingState.NOT_INITIALIZED
         if self.keyframe_db is not None:
             self.keyframe_db.clear()
             self.map.erase_hooks.append(self.keyframe_db.erase)
 
+    def _new_map(self) -> Map:
+        m = Map(device=self.device, index=self.index)
+        m.tracer = self.tracer
+        return m
+
     def _install_map(self, m: Map, trajectory):
         """Point every consumer at map `m` and drop the tracker's per-map state."""
+        m.tracer = self.tracer
         self.map = m
         self.local_mapping.map = m
         self.local_mapping.recent_points = []
@@ -439,7 +452,8 @@ class System:
         if self._gba() is not None:
             self._gba().abort()
         self._drain_mapping()
-        m, voc, traj = _load_map(path, self.cfg.scale_factor, self.cfg.n_levels, self.camera, device=self.device)
+        m, voc, traj = _load_map(path, self.cfg.scale_factor, self.cfg.n_levels, self.camera, device=self.device,
+                                 index=self.index)
         self._install_map(m, traj)
         self.tracking.state = TrackingState.LOST
         if voc is not None:

@@ -78,6 +78,7 @@ def map_from_jax(jmap, device="cpu") -> Map:
     for name in ("n_points", "pt_version", "next_kf_id", "origin_kf_id", "big_change_idx"):
         setattr(m, name, int(getattr(jmap, name)))
     m.obs = {int(p): {int(k): int(f) for k, f in o.items()} for p, o in jmap.obs.items()}
+    m.reindex()
     for kf_id, jkf in jmap.keyframes.items():
         kf = object.__new__(KeyFrame)
         for name in ("kf_id", "frame_id", "timestamp", "n_levels", "scale_factor", "bad",

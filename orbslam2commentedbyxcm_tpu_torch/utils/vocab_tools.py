@@ -8,8 +8,9 @@ here on a torch device) and stores them as .npz; `import_dbow2_text` also
 converts a DBoW2 text vocabulary into the packed format (tree topology and
 weights are format-compatible; descriptor semantics are not, so a converted
 ORBvoc quantizes but is suboptimal for this pattern). Images are read with
-the port's PNG codec (utils/png). The DBoW2 text is parsed in Python only:
-the JAX package's prebuilt C++ scanner is not used.
+the port's PNG codec (utils/png). The DBoW2 text is parsed by the port's host
+C++ parser (native.parse_dbow2_text, csrc/vocloader.cpp), bit-equal to
+`_parse_dbow2_text_py`, its Python twin (`parser="python"`).
 
 CLI:
   python -m orbslam2commentedbyxcm_tpu_torch.utils.vocab_tools train OUT.npz IMG_DIR_OR_PNG... [--device cuda]
@@ -70,18 +71,26 @@ def _parse_dbow2_text_py(path: str):
     )
 
 
-def import_dbow2_text(path: str) -> bow.Vocabulary:
+def import_dbow2_text(path: str, parser: str = "native") -> bow.Vocabulary:
     """Convert a DBoW2 text vocabulary (ORBvoc.txt format) to packed arrays.
 
     Format (TemplatedVocabulary::loadFromTextFile,
     Thirdparty/DBoW2/DBoW2/TemplatedVocabulary.h:1338): header `k L s1 s2`,
-    then one line per node: parent_id is_leaf d0..d31 weight. Tree assembly
-    is vectorized numpy. A file that is not such a vocabulary raises
-    ValueError."""
-    try:
-        k, depth, parents, leaves, desc_u8, weights = _parse_dbow2_text_py(path)
-    except (ValueError, IndexError) as e:
-        raise ValueError(f"{path}: not a DBoW2 text vocabulary ({e})") from e
+    then one line per node: parent_id is_leaf d0..d31 weight. The text is
+    parsed by the host C++ parser (`parser="native"`) or its Python twin
+    (`parser="python"`), with the same result; tree assembly is vectorized
+    numpy. A file that is not such a vocabulary raises ValueError."""
+    if parser == "native":
+        from orbslam2commentedbyxcm_tpu_torch import native
+
+        k, depth, parents, leaves, desc_u8, weights = native.parse_dbow2_text(path)
+    elif parser == "python":
+        try:
+            k, depth, parents, leaves, desc_u8, weights = _parse_dbow2_text_py(path)
+        except (ValueError, IndexError) as e:
+            raise ValueError(f"{path}: not a DBoW2 text vocabulary ({e})") from e
+    else:
+        raise ValueError(f"import_dbow2_text(parser={parser!r}): 'native' or 'python'")
     if len(parents) == 0 or k < 1 or depth < 1:
         raise ValueError(f"{path}: not a DBoW2 text vocabulary (no node lines)")
 

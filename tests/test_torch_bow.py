@@ -3,10 +3,13 @@
 Over one 640x480 frame's 1000 descriptors and the shipped vocabulary (k = 10,
 depth 6, 785,724 words): words and grouping nodes bit-equal, BoW vector ids
 equal and values within 1e-6, the six scorings equal. The port's
-KeyFrameDatabase returns the same candidate lists, in the same order, as the
-JAX database on its Python backend (`use_native=False`) for the same adds,
-erases and queries. The JAX database can also run on its C++ inverted file;
-the port keeps only the Python backend (ROADMAP.md Queue 3).
+KeyFrameDatabase returns the same candidate lists, in the same order, and
+bit-equal scores as the JAX database on its Python backend
+(`use_native=False`) for the same adds, erases and queries: on the port's C++
+inverted file (`index="native"`, the default) and on its Python twin
+(`index="python"`). The JAX package's own C++ inverted file returns its
+candidates in hash order; tests/test_torch_native.py holds the port's native
+index to its Python twin in detail.
 """
 
 import numpy as np
@@ -97,6 +100,14 @@ class _StubMap:
 
 
 def test_keyframe_database_candidates_equal(vocs, frames, rng):
+    _database_candidates_equal(vocs, frames, rng, "native")
+
+
+def test_keyframe_database_python_index_candidates_equal(vocs, frames, rng):
+    _database_candidates_equal(vocs, frames, rng, "python")
+
+
+def _database_candidates_equal(vocs, frames, rng, index):
     jv, tv = vocs
     vecs = []
     for desc, valid in frames:
@@ -110,8 +121,8 @@ def test_keyframe_database_candidates_equal(vocs, frames, rng):
             v = vals[keep] * rng.uniform(0.5, 1.5, keep.sum()).astype(np.float32)
             kf_vecs[3 * i + c] = (ids[keep], (v / v.sum()).astype(np.float32))
     covis = {k: [j for j in (k - 3, k + 3, k + 1, k - 1) if 0 <= j < 24] for k in kf_vecs}
-    jdb, tdb = JDatabase(jv, use_native=False), TDatabase(tv)
-    assert not jdb.is_native
+    jdb, tdb = JDatabase(jv, use_native=False), TDatabase(tv, index=index)
+    assert not jdb.is_native and tdb.index == index
     for k, (ids, vals) in kf_vecs.items():
         jdb.add(k, ids, vals)
         tdb.add(k, ids, vals)

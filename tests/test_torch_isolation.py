@@ -1,10 +1,14 @@
 """The port never imports JAX: every module of the package, one CPU tracking
 step, three RGB-D frames through the System, the shipped vocabulary and three
 monocular frames with place recognition, a loop-closing RGB-D System, a
-small trained vocabulary and a TUM dataset on disk through
-cli.run_dataset, in a fresh interpreter. The dataset path (settings, PNG
-codec, rectification, readers, CLI) loads no cv2, PIL or matplotlib either:
-the port decodes images itself and depends on none of them."""
+small trained vocabulary, a TUM dataset on disk through cli.run_dataset and a
+DBoW2 text vocabulary through the port's own C++ parser, in a fresh
+interpreter. The Systems run on the default native index (the port's host
+C++ runtime, built into build/kernels/): the process maps that library and no
+shared object of the JAX package's native/ directory. The dataset path
+(settings, PNG codec, rectification, readers, CLI) loads no cv2, PIL or
+matplotlib either: the port decodes images itself and depends on none of
+them."""
 
 import os
 import subprocess
@@ -64,6 +68,19 @@ settings = dataset_writers.write_tum_rgbd(root, BoxSequence(camera=tiny, seed=11
 assert run_dataset.main(["tum", root, settings, "--device", "cpu", "--no-loop-closing",
                          "--out-prefix", root + "/"]) == 0
 assert len(np.loadtxt(root + "/CameraTrajectory.txt", ndmin=2)) == 3
+assert slam.map.index == loop.map.index == "native" and loop.keyframe_db.index == "native"
+assert len(loop.map.points_seen_by(loop.map.keyframes)) > 0
+from orbslam2commentedbyxcm_tpu_torch.utils import vocab_tools
+voc_txt = root + "/voc.txt"
+with open(voc_txt, "w") as f:
+    f.write("2 1 0 0\n" + "".join(f"0 1 {' '.join(['7'] * 32)} 0.5\n" for _ in range(2)))
+assert vocab_tools.import_dbow2_text(voc_txt).n_words == 2
+mapped = [line.split()[-1] for line in open("/proc/self/maps") if line.rstrip().endswith(".so")]
+print("HOST-LIBRARY:", [p for p in mapped if "libslam_host_" in p])
+assert any("libslam_host_" in p for p in mapped), mapped
+jax_native = sorted({p for p in mapped if "orbslam2commentedbyxcm_tpu/native/" in p})
+print("JAX-NATIVE-LIBS:", jax_native)
+assert not jax_native, jax_native
 bad = sorted(m for m in sys.modules if m in ("jax", "orbslam2commentedbyxcm_tpu")
              or m.startswith(("jax.", "jaxlib", "orbslam2commentedbyxcm_tpu.")))
 print("JAX-MODULES:", bad)
@@ -81,3 +98,4 @@ def test_port_never_imports_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "JAX-MODULES: []" in proc.stdout
     assert "IMAGE-MODULES: []" in proc.stdout
+    assert "JAX-NATIVE-LIBS: []" in proc.stdout

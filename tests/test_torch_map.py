@@ -3,9 +3,11 @@ operations (add, observe, batch attribute updates, covisibility, replace,
 erase, keyframe erasure with re-parenting, replacement resolution) run on
 both, with exact results.
 
-The JAX Map runs on its dict observation index (`_native = None`), the path
-the port carries over. `points_seen_by` is compared as a set: the JAX
-package's C++ index returns hash-set order and the port sorted ids."""
+The JAX Map runs on its dict observation index (`_native = None`); the port's
+Map runs on its default C++ index (`index="native"`), which gives the dict
+path's results in the dict path's order (tests/test_torch_native.py holds the
+two port indexes to each other). `points_seen_by` is compared as a set: the
+port returns sorted ids."""
 
 import types
 

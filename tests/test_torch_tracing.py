@@ -6,7 +6,10 @@ wall clock, so only the keys, the span counts and the counters can agree);
 a disabled tracer records nothing; a 10-frame RGB-D run of each package's
 System (320x240, 600 features, a keyframe at least every 6 frames, the
 default lazy vocabulary trainer) records the same set of span names, one
-"extract" and one "tracking" span and one frame record per frame."""
+"extract" and one "tracking" span and one frame record per frame. The port
+adds three spans of its own around the Map's index queries
+(`map_index_points`, `map_index_observers`, `map_index_connections`), which
+the JAX package does not time."""
 
 import json
 
@@ -92,7 +95,9 @@ def test_system_span_names_match_jax():
     ts.shutdown()
     names_t, names_j = set(tt.stats()["spans"]), set(jt.stats()["spans"])
     print(f"port spans {sorted(names_t)}\nJAX spans {sorted(names_j)}")
-    assert names_t == names_j
+    index_spans = {"map_index_points", "map_index_observers", "map_index_connections"}
+    assert index_spans <= names_t and not index_spans & names_j
+    assert names_t - index_spans == names_j
     assert {"extract", "tracking", "track_device", "local_mapping", "local_ba", "map_device"} <= names_t
     for name in ("extract", "tracking"):
         assert tt.stats()["spans"][name]["n"] == 10

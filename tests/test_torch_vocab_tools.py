@@ -3,9 +3,11 @@ package's: the DBoW2 text importer gives the same tree arrays, training from
 PNG images gives the tree bow.train_vocabulary gives on the same
 descriptors, and the `train` / `convert` commands round-trip through .npz.
 
-Chosen divergence: the port parses the DBoW2 text in Python only; the JAX
-package prefers its prebuilt C++ scanner (native/libvocloader.so, built for
-another host), and its test holds that scanner to the same Python parser."""
+The port parses the DBoW2 text with its own C++ parser (native/,
+csrc/vocloader.cpp, built by kernels.host_library) by default and with its
+Python twin on `parser="python"`: both are held to the JAX importer here, and
+to each other bit for bit in tests/test_torch_native.py. The port never loads
+the JAX package's prebuilt scanner (native/libvocloader.so)."""
 
 import numpy as np
 import pytest
@@ -74,6 +76,17 @@ def test_import_rejects_garbage(tmp_path):
     bad.write_text("this is not a vocabulary\n1 2 3\n")
     with pytest.raises(ValueError, match="not a DBoW2 text vocabulary"):
         vocab_tools.import_dbow2_text(str(bad))
+
+
+@pytest.mark.parametrize("k,depth,seed", [(3, 2, 2), (4, 3, 5)])
+def test_python_parser_matches_native(tmp_path, k, depth, seed):
+    voc_file = tmp_path / "voc.txt"
+    _write_synthetic_voc(voc_file, k=k, depth=depth, seed=seed)
+    native = vocab_tools.import_dbow2_text(str(voc_file))
+    _assert_same_tree(vocab_tools.import_dbow2_text(str(voc_file), parser="python"), native)
+    _assert_same_tree(native, jvocab_tools.import_dbow2_text(str(voc_file)))
+    with pytest.raises(ValueError, match="parser"):
+        vocab_tools.import_dbow2_text(str(voc_file), parser="fast")
 
 
 def test_train_from_images_and_commands(tmp_path):

@@ -81,6 +81,6 @@ def test_lazy_trainer_wires_loop_closing():
     assert len(kfs) >= 5
     descs = np.concatenate([kf.desc[kf.valid] for kf in kfs])
     _assert_same_tree(s.vocabulary, jbow.train_vocabulary(descs, k=8, depth=3))
-    assert set(s.keyframe_db.vectors) == {kf.kf_id for kf in kfs}
+    assert set(s.keyframe_db.kf_ids()) == {kf.kf_id for kf in kfs}
     assert all(kf.bow_feat_nodes is not None for kf in kfs)
     assert s.track_rgbd(seq.render(i), seq.depth_map(i), i / 30.0) is not None
