@@ -14,10 +14,20 @@ C++ runtime (map index, keyframe database, DBoW2 parser) against its Python
 twins. Phases, each printing one line:
 
   1. device   the card's name and power limit (nvidia-smi), TF32 flags
-  2. build    nvcc build of both kernels (one nvcc per source, in parallel), seconds;
+  2. build    nvcc build of the kernels (one nvcc per source, in parallel), seconds;
               g++ build of the host runtime (PNG row filters, map index,
               inverted file, DBoW2 parser; one g++ per source, in parallel)
-  3. K1       one launch of the fused frontend over the 8-level pyramid of a
+  3. pyramid  the exposure gain and pyramid kernel vs its twin, on the card and
+              on the CPU (bit-equal on every level), gain on and off, on a
+              rendered frame and a random image at 640x480, 752x480 and
+              1241x376; device time (torch.profiler), call time, twin time,
+              bound, and the device time of the 14 torch.matmul calls it
+              replaced; then the whole extractor on the card against the
+              same extractor on the CPU, each on its own: keypoints (valid,
+              uv, level, response) bit-equal, angles within 1e-5 at 640x480
+              (printed at the dataset sizes), descriptors differing on at most
+              5 keypoints by at most 4 bits
+     K1       one launch of the fused frontend over the 8-level pyramid of a
               640x480 frame vs the twin, level by level (bit-equal), and each
               level alone; device time (torch.profiler), call time (CUDA
               events) of one pyramid launch and of 8 single-level launches,
@@ -104,8 +114,9 @@ twins. Phases, each printing one line:
               parser on a file of ORBvoc.txt's shape (k 10, L 6), median
               seconds, the Python parser's once, bit-equal to it there and
               at L 4
- 18. kernels  one JSON line: per kernel, launches summed over phases 6-17,
-              error, times, bound
+ 18. kernels  one JSON line: per kernel, launches summed over phases 6-17
+              (the pyramid kernel's as calls: three launches each with the
+              gain, which the main path has on), error, times, bound
 
 The last line is {"ok": true, "device": {...}}. Any failed phase exits non-zero
 without that line. Without a CUDA device it exits 2 and prints no result.
@@ -220,12 +231,15 @@ def _cuda_ms(fn, reps: int) -> float:
 PROFILE_MARGIN_S = 0.02
 
 
-def _device_ms(fn, reps: int, kernel: str, per_call: int | None = None) -> tuple[float, int]:
+def _device_ms(fn, reps: int, kernel, per_call: int | None = None) -> tuple[float, int]:
     """(device milliseconds per fn() call, kernel launches seen) of the kernels
-    whose name contains `kernel`, summed by torch.profiler over `reps` calls
-    after one warm-up. With `per_call`, the profiler must have seen exactly
-    `per_call` such launches per call."""
+    whose name contains `kernel` (a name or a tuple of names; "" is every
+    kernel), summed by torch.profiler over `reps` calls after one warm-up.
+    Only events on the device count (not the runtime calls that launched
+    them). With `per_call`, the profiler must have seen exactly `per_call`
+    such launches per call."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -236,7 +250,8 @@ def _device_ms(fn, reps: int, kernel: str, per_call: int | None = None) -> tuple
             fn()
         torch.cuda.synchronize()
         time.sleep(PROFILE_MARGIN_S)
-    events = [e for e in prof.key_averages() if kernel in e.key]
+    names = (kernel,) if isinstance(kernel, str) else kernel
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and any(k in e.key for k in names)]
     n = sum(e.count for e in events)
     us = sum(getattr(e, "self_device_time_total", 0) for e in events)
     _check(n > 0 and us > 0, f"torch.profiler recorded no device time for {kernel}")
@@ -407,6 +422,127 @@ def phase_k1(torch, dev):
     return {"max_abs_err": 0.0, "ms": device_ms, "device_ms": device_ms, "call_ms": call_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "per_level_device_ms": level_device_ms, "per_level_call_ms": level_call_ms, "sizes": sizes}
+
+
+# the pyramid kernel's operations, counted from csrc/pyramid.cu: a fused
+# multiply-add (2) per nonzero tap of each pass; per pixel the gain's two sums
+# (an add, and a difference, an absolute value and an add) and its rescale
+# (3)
+PYRAMID_OPS_PER_TAP, PYRAMID_GAIN_OPS_PER_PX = 2, 7
+# the extractor held card against CPU in phase 3: TUM1 frames (1000
+# features) as in tests/test_torch_kernels_cuda.py, then one frame at each of
+# phase 15's EuRoC and KITTI sizes with their settings' feature counts. The
+# angles differ by ulps: the orientation moments (a float32 matvec) sum in
+# another order on each device and atan2 is libm on the CPU, libdevice on the
+# card. The gap read 2.3e-6 to 4.3e-6 rad on the 640x480 and EuRoC frames
+# and 1.65e-5 on one keypoint of the KITTI frame (H100 80GB HBM3, 700.00 W),
+# so one bound of 2e-5 holds all five frames.
+EXTRACT_FRAMES_640 = (0, 20, 40)
+ANGLE_TOL = 2e-5
+EXTRACT_DATASET_FEATURES = {(752, 480): 1200, (1241, 376): 2000}
+
+
+def pyramid_ops(h: int, w: int, table, gain: bool) -> int:
+    """Operations of one pyramid call: the nonzero taps of both passes of
+    every level (the vertical pass runs over the full width), and the gain."""
+    from orbslam2commentedbyxcm_tpu_torch.ops.orb import _resize_weights
+
+    taps = 0
+    for hl, wl in table.shapes[1:]:
+        taps += int((_resize_weights(h, hl) != 0).sum()) * w + int((_resize_weights(w, wl) != 0).sum()) * hl
+    return PYRAMID_OPS_PER_TAP * taps + (PYRAMID_GAIN_OPS_PER_PX * h * w if gain else 0)
+
+
+def _feature_gaps(torch, card, cpu):
+    """(keypoints in both, largest angle gap, descriptors that differ, most
+    bits one differs by) over the valid slots of two FrameFeatures with the
+    same keypoints."""
+    v = cpu.valid
+    ang = float((card.angle.cpu()[v] - cpu.angle[v]).abs().max())
+    x = (card.desc.cpu()[v] ^ cpu.desc[v]).view(torch.uint8)
+    bits = sum(((x >> s) & 1).int() for s in range(8)).sum(1)
+    return int(v.sum()), ang, int((bits > 0).sum()), int(bits.max())
+
+
+def phase_pyramid(torch, dev):
+    """The gain and pyramid kernel vs its twin (on the card and on the CPU),
+    its times at 640x480, then the whole extractor card vs CPU."""
+    from orbslam2commentedbyxcm_tpu_torch.ops import frontend_kernel as fk
+    from orbslam2commentedbyxcm_tpu_torch.ops import pyramid_kernel as pk
+    from orbslam2commentedbyxcm_tpu_torch.ops.orb import ORBExtractor, _pyramid_plain, _resize_weights
+    from orbslam2commentedbyxcm_tpu_torch.utils.synth import BoxSequence, default_camera
+
+    rng = np.random.default_rng(0)
+    target = ORBExtractor().exposure_target_mad
+    n_checked = 0
+    for w, h in ((640, 480),) + K1_DATASET_SIZES:
+        frame = BoxSequence(camera=default_camera(w, h), seed=5, n_frames=100, turns=0.35).render(0)
+        for kind, img in (("frame", frame), ("uint8", rng.integers(0, 256, (h, w)))):
+            img = torch.from_numpy(img.astype(np.float32))
+            for gain in (None, target):
+                buf, table = ORBExtractor(n_features=1000, normalize_exposure=gain is not None)._pyramid(img.to(dev))
+                for where, ref in (("card", _pyramid_plain(img.to(dev), table, gain)),
+                                   ("CPU", _pyramid_plain(img, table, gain))):
+                    levels = zip(fk.level_views(buf.cpu(), table), fk.level_views(ref.cpu(), table))
+                    for lvl, (a, b) in enumerate(levels):
+                        _check(torch.equal(a, b), f"pyramid_resize {w}x{h} {kind} gain {gain} level {lvl}: "
+                               f"{int((a != b).sum())} pixels differ from the twin on the {where}")
+                n_checked += 1
+
+    # times on the main path's input: a 640x480 frame, gain on
+    h, w = 480, 640
+    img = torch.from_numpy(BoxSequence(camera=default_camera(w, h), seed=5, n_frames=100,
+                                       turns=0.35).render(0).astype(np.float32)).to(dev)
+    _, table = ORBExtractor()._pyramid(img)
+    gained = lambda: pk.pyramid_resize(img, table, target)  # noqa: E731
+    plain = lambda: pk.pyramid_resize(img, table)  # noqa: E731
+    call_ms, resize_call_ms = _cuda_ms(gained, 200), _cuda_ms(plain, 200)
+    device_ms, _ = _device_ms(gained, 50, ("pyramid_resize", "gain_sum"), per_call=3)
+    resize_ms, _ = _device_ms(plain, 50, "pyramid_resize", per_call=1)
+    plain_ms = _cuda_ms(lambda: _pyramid_plain(img, table, target), 10)
+    mats = [(torch.from_numpy(_resize_weights(h, hl)).to(dev), torch.from_numpy(_resize_weights(w, wl)).to(dev))
+            for hl, wl in table.shapes[1:]]
+    matmuls = lambda: [wh @ img @ ww.T for wh, ww in mats]  # noqa: E731
+    # device kernels only, a whole number per product (the H100 80GB HBM3 ran
+    # 28 per call, two per product)
+    library_ms, n_events = _device_ms(matmuls, 50, "")
+    _check(n_events % (len(mats) * 2 * 50) == 0, f"the 14 products ran {n_events} kernels in 50 calls")
+    library_call_ms = _cuda_ms(matmuls, 200)
+    n_px = sum(a * b for a, b in table.shapes)
+    bound_ms, bound_by = _bound(pyramid_ops(h, w, table, True), 4 * (h * w + n_px))
+    resize_bound_ms, _ = _bound(pyramid_ops(h, w, table, False), 4 * (h * w + n_px))
+    print(f"[3 pyramid] gain + 8 levels bit-equal to the twin on the card and on the CPU in {n_checked} cases "
+          f"(640x480, 752x480, 1241x376; frame and random; gain on and off) | 640x480 frame, gain on (3 launches "
+          f"per extraction): device {device_ms:.4f} ms (torch.profiler), call {call_ms:.4f} ms (CUDA events), "
+          f"twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / device_ms:.1f}% of "
+          f"device); gain off (1 launch): device {resize_ms:.4f} ms, call {resize_call_ms:.4f} ms, bound "
+          f"{resize_bound_ms:.4f} ms | the 14 torch.matmul calls it replaced: device {library_ms:.4f} ms "
+          f"({n_events // 50} kernels per call), call {library_call_ms:.4f} ms")
+
+    # the whole extractor, card against CPU, each extracting on its own
+    cases = [((640, 480), 1000, i) for i in EXTRACT_FRAMES_640]
+    cases += [(size, n, 0) for size, n in EXTRACT_DATASET_FEATURES.items()]
+    rows = []
+    for (w, h), n_features, i in cases:
+        frame = BoxSequence(camera=default_camera(w, h), seed=5, n_frames=100, turns=0.35).render(i)
+        ext = ORBExtractor(n_features=n_features, normalize_exposure=True)
+        card, cpu = ext(torch.from_numpy(frame).to(dev)), ext(torch.from_numpy(frame))
+        for f in ("valid", "uv", "level", "response"):
+            _check(torch.equal(getattr(card, f).cpu(), getattr(cpu, f)),
+                   f"extractor {w}x{h} frame {i}: {f} differs between the card and the CPU")
+        n, ang, n_desc, max_bits = _feature_gaps(torch, card, cpu)
+        _check(n > 0.5 * n_features, f"extractor {w}x{h} frame {i}: {n} keypoints")
+        _check(n_desc <= 5 and max_bits <= 4, f"extractor {w}x{h} frame {i}: {n_desc} descriptors differ, "
+               f"by up to {max_bits} bits")
+        _check(ang <= ANGLE_TOL, f"extractor {w}x{h} frame {i}: angle gap {ang:.3g} over {ANGLE_TOL}")
+        rows.append(f"{w}x{h} frame {i} ({n_features}): {n} keypoints, angle gap {ang:.3g}, "
+                    f"{n_desc} descriptors differ (max {max_bits} bits)")
+    print("[3 extractor] card vs CPU, gain on, each extracting on its own: valid, uv, level and response "
+          f"bit-equal; angle gap within {ANGLE_TOL} | " + "; ".join(rows))
+    return {"max_abs_err": 0.0, "ms": device_ms, "device_ms": device_ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "library_call_ms": library_call_ms, "gain_off_device_ms": resize_ms,
+            "gain_off_call_ms": resize_call_ms, "gain_off_bound_ms": resize_bound_ms, "kernel_launches_per_call": 3}
 
 
 FX = FY = 500.0
@@ -604,14 +740,12 @@ MAX_ROT_ERR_DEG = 0.6
 
 
 def phase_tracking(torch, dev, k1, k2):
-    from orbslam2commentedbyxcm_tpu_torch.ops.frontend_kernel import fused_frontend, fused_frontend_pyramid
-    from orbslam2commentedbyxcm_tpu_torch.ops.poseopt_kernel import pose_optimization_fused
+    from orbslam2commentedbyxcm_tpu_torch.ops.frontend_kernel import fused_frontend
 
-    fused_frontend_pyramid.launches = fused_frontend.launches = 0
-    pose_optimization_fused.launches = 0
+    _reset_launches()
+    fused_frontend.launches = 0
     seq, out = track_sequence(torch, dev, N_TRACK, timer=_EventTimer(torch))
-    launches = {"fused_frontend": fused_frontend_pyramid.launches,
-                "pose_optimization_fused": pose_optimization_fused.launches}
+    launches = _read_launches()
     # frame 0 (the map pack) and frames 1..N are each extracted once
     _check(launches["fused_frontend"] == N_TRACK + 1 and fused_frontend.launches == 0,
            f"K1 launched {launches['fused_frontend']} times (+{fused_frontend.launches} single-level) for "
@@ -667,8 +801,7 @@ def phase_slam(torch, dev, sensor_name, n_frames, jax_ate, tag):
     timer = _EventTimer(torch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fused_frontend_pyramid.launches = 0
-    pose_optimization_fused.launches = 0
+    _reset_launches()
     rows = []  # (i, pose, ms, keyframe inserted, K1 launches, K2 launches)
     for i, (a, b) in enumerate(frames):
         kf_before, k1, k2 = slam.map.next_kf_id, fused_frontend_pyramid.launches, pose_optimization_fused.launches
@@ -677,8 +810,7 @@ def phase_slam(torch, dev, sensor_name, n_frames, jax_ate, tag):
         ms = timer.stop()
         rows.append((i, pose, ms, slam.map.next_kf_id > kf_before,
                      fused_frontend_pyramid.launches - k1, pose_optimization_fused.launches - k2))
-    launches = {"fused_frontend": fused_frontend_pyramid.launches,
-                "pose_optimization_fused": pose_optimization_fused.launches}
+    launches = _read_launches()
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
 
     tracked = [(i, p) for i, p, *_ in rows if p is not None]
@@ -722,11 +854,35 @@ def phase_slam(torch, dev, sensor_name, n_frames, jax_ate, tag):
     return launches
 
 
+# the kernels of the main path, by their names in the kernels line, in the
+# order of _launch_counters()
+LAUNCH_NAMES = ("fused_frontend", "pose_optimization_fused", "pyramid_resize")
+
+
 def _launch_counters():
+    """The wrappers whose `.launches` count the main path's kernel launches:
+    K1 (the pyramid launch), K2 and the pyramid kernel."""
     from orbslam2commentedbyxcm_tpu_torch.ops.frontend_kernel import fused_frontend_pyramid
     from orbslam2commentedbyxcm_tpu_torch.ops.poseopt_kernel import pose_optimization_fused
+    from orbslam2commentedbyxcm_tpu_torch.ops.pyramid_kernel import pyramid_resize
 
-    return fused_frontend_pyramid, pose_optimization_fused
+    return fused_frontend_pyramid, pose_optimization_fused, pyramid_resize
+
+
+def _reset_launches(counts: dict | None = None):
+    """Set every kernel's launch count to 0, or to `counts` (a _read_launches
+    result)."""
+    for name, c in zip(LAUNCH_NAMES, _launch_counters()):
+        c.launches = counts[name] if counts else 0
+
+
+def _read_launches() -> dict:
+    return {name: c.launches for name, c in zip(LAUNCH_NAMES, _launch_counters())}
+
+
+def _add_launches(total: dict, counts: dict) -> None:
+    for name in LAUNCH_NAMES:
+        total[name] += counts[name]
 
 
 def _stats(ms):
@@ -737,7 +893,7 @@ def _stats(ms):
 def _track_timed(track, rows, args, timer):
     """One System call timed with CUDA events, appended to `rows` as (pose,
     ms, K1 launches, K2 launches); returns the pose."""
-    k1c, k2c = _launch_counters()
+    k1c, k2c, _ = _launch_counters()
     k1, k2 = k1c.launches, k2c.launches
     timer.start()
     pose = track(*args)
@@ -760,16 +916,15 @@ def phase_mono(torch, dev):
     frames = [seq.render(i) for i in range(N_MONO)]
     slam = System(cam, Sensor.MONOCULAR, config=TrackingConfig(max_frames_between_kf=8, kf_tracked_ratio=0.95),
                   enable_loop_closing=False, device=dev)
-    k1c, k2c = _launch_counters()
     timer = _EventTimer(torch)
     torch.cuda.synchronize()
-    k1c.launches = k2c.launches = 0
+    _reset_launches()
     rows, kf_new = [], []
     for i, img in enumerate(frames):
         kf_before = slam.map.next_kf_id
         _track_timed(slam.track_monocular, rows, (img, i / 30.0), timer)
         kf_new.append(slam.map.next_kf_id > kf_before)
-    launches = {"fused_frontend": k1c.launches, "pose_optimization_fused": k2c.launches}
+    launches = _read_launches()
 
     tracked = [i for i, r in enumerate(rows) if r[0] is not None]
     _check(bool(tracked), "mono: never initialized")
@@ -835,10 +990,9 @@ def phase_reloc(torch, dev):
     blank += np.random.default_rng(0).uniform(-1, 1, blank.shape).astype(np.float32)
     slam = System(cam, Sensor.RGBD, config=TrackingConfig(max_frames_between_kf=6), vocabulary=voc,
                   enable_loop_closing=False, device=dev)
-    k1c, k2c = _launch_counters()
     timer = _EventTimer(torch)
     torch.cuda.synchronize()
-    k1c.launches = k2c.launches = 0
+    _reset_launches()
     rows = []
     for i, (img, depth) in enumerate(frames):
         _track_timed(slam.track_rgbd, rows, (img, depth, i / 30.0), timer)
@@ -862,7 +1016,7 @@ def phase_reloc(torch, dev):
            f"reloc: pose error {pos:.4f} m / {rot:.4f} deg over {RELOC_MAX_POS_M} m / {RELOC_MAX_ROT_DEG} deg")
     _check(all(r[0] is not None for r in reloc_rows), "reloc: lost again after relocalizing")
     _check(k2_reloc >= 1, "reloc: no K2 launch in the relocalization frame")
-    launches = {"fused_frontend": k1c.launches, "pose_optimization_fused": k2c.launches}
+    launches = _read_launches()
     parts = "; ".join(f"{k} {1e3 * v:.3f}" for k, v in split.items())
     map_ms = [r[1] for r in rows[1:N_RELOC_MAP]]
     print(f"[10 reloc] System(RGBD, vocabulary=bootstrap, device={dev}), BoxSequence seed 5, 640x480: mapped frames "
@@ -883,12 +1037,11 @@ def phase_localization(torch, dev, slam, seq):
 
     frozen = (slam.map.next_kf_id, len(slam.map.good_keyframes()), slam.map.n_valid_points())
     slam.activate_localization_mode()
-    k1c, k2c = _launch_counters()
     timer = _EventTimer(torch)
     first = REVISIT + 5
     frames = [(seq.render(i), seq.depth_map(i)) for i in range(first, first + 11)]
     torch.cuda.synchronize()
-    k1c.launches = k2c.launches = 0
+    _reset_launches()
     rows, errs = [], []
     for k, (img, depth) in enumerate(frames[:10]):
         pose = _track_timed(slam.track_rgbd, rows, (img, depth, 3.0 + 0.1 * k), timer)
@@ -906,7 +1059,7 @@ def phase_localization(torch, dev, slam, seq):
     _check(vo_err < 0.3, f"loc: VO pose error {vo_err:.4f} m")
     _check(slam.get_tracking_state() == TrackingState.OK, "loc: not tracking after the VO frame")
     slam.deactivate_localization_mode()
-    launches = {"fused_frontend": k1c.launches, "pose_optimization_fused": k2c.launches}
+    launches = _read_launches()
     k2_per = [r[3] for r in rows[:10] if r[0] is not None]
     print(f"[11 loc] localization mode, frames {first}-{first + 9}: {n_tracked}/10 tracked, worst position error "
           f"{max(errs):.4f} m, keyframes / points unchanged ({frozen[1]} / {frozen[2]}); per-frame ms "
@@ -1023,10 +1176,9 @@ def phase_loop(torch, dev, card: str):
     cam = default_camera(640, 480)
     seq = BoxSequence(camera=cam, n_frames=N_LOOP, turns=1.3)
     frames = [(seq.render(i), seq.depth_map(i)) for i in range(N_LOOP)]
-    k1c, k2c = _launch_counters()
     timer = _EventTimer(torch)
     torch.cuda.synchronize()
-    k1c.launches = k2c.launches = 0
+    _reset_launches()
     n_lazy, lazy_rows, lazy_words, lazy_card_s, lazy_cpu_s = _lazy_vocabulary_run(torch, dev, cam, frames[:40], timer)
     k1_lazy = sorted({r[2] for r in lazy_rows})
     _check(k1_lazy == [1], f"lazy vocabulary: K1 launches per frame {k1_lazy}")
@@ -1035,7 +1187,7 @@ def phase_loop(torch, dev, card: str):
         slam, rows, kf_new, loops, gba_frames = _loop_run(torch, dev, cam, seq, frames, True, timer)
     loop_frame = loops[0] if loops else None
     peak_mib = torch.cuda.max_memory_allocated(dev) / 2**20
-    launches = {"fused_frontend": k1c.launches, "pose_optimization_fused": k2c.launches}
+    launches = _read_launches()
     lc = slam.loop_closing
     _check(all(r[0] is not None for r in rows), f"loop: {sum(r[0] is None for r in rows)} frames not tracked")
     _check(not slam._archived_kf_trajectory, "loop: tracking was lost and the System reset")
@@ -1057,13 +1209,13 @@ def phase_loop(torch, dev, card: str):
     _check(min(k2_per) >= 2, f"loop: K2 launched {min(k2_per)} times on a tracked frame (want >= 2)")
 
     # the same frames with loop closing off (not counted: a comparison run)
-    k1_before, k2_before = k1c.launches, k2c.launches
+    before = _read_launches()
     off, *_ = _loop_run(torch, dev, cam, seq, frames, False, timer)
     poses_off = _frame_poses(off)
     ate_off, ate_off_to_loop = _ate(poses_off, seq, range(N_LOOP)), _ate(poses_off, seq, range(loop_frame + 1))
     drift_off = _drift(poses_off, seq, *edge)
     del off
-    k1c.launches, k2c.launches = k1_before, k2_before
+    _reset_launches(before)
     bound = 1.5 * JAX_ATE_LOOP + 0.01
     # what a failed accuracy check reports with it
     run = (f"loops closed on frames {loops}, global BA written back after frames {gba_frames}, "
@@ -1096,13 +1248,13 @@ def phase_loop(torch, dev, card: str):
     fresh.activate_localization_mode()
     reloc_rows = []
     img, depth = frames[LOOP_RELOC_FRAME]
+    before = _read_launches()
     pose = _track_timed(fresh.track_rgbd, reloc_rows, (img, depth, 100.0), timer)
     _check(pose is not None, f"loop: frame {LOOP_RELOC_FRAME} not relocalized against the reloaded map")
     pos, rot = pose_errors(pose, seq.pose(LOOP_RELOC_FRAME) @ np.linalg.inv(seq.pose(0)))
     _check(pos <= RELOC_MAX_POS_M and rot <= RELOC_MAX_ROT_DEG,
            f"loop: relocalized pose error {pos:.4f} m / {rot:.4f} deg over {RELOC_MAX_POS_M} m / {RELOC_MAX_ROT_DEG} deg")
-    launches["fused_frontend"] += reloc_rows[0][2]
-    launches["pose_optimization_fused"] += reloc_rows[0][3]
+    _add_launches(launches, {name: n - before[name] for name, n in _read_launches().items()})
 
     parts = ["bow_transform", "detect", "bow_match", "ransac", "grow_refine", "guided", "correction",
              "essential_graph", "gba_launch"]
@@ -1192,7 +1344,6 @@ def phase_async_loop(torch, dev, card: str, loop):
     from orbslam2commentedbyxcm_tpu_torch.utils.tracing import Tracer
 
     cam, seq, frames, sync = loop["cam"], loop["seq"], loop["frames"], loop["sync"]
-    k1c, k2c = _launch_counters()
     timer = _EventTimer(torch)
     tracer = Tracer()
     slam = System(cam, Sensor.RGBD, config=_loop_config(), vocabulary="bootstrap", async_mapping=True,
@@ -1200,7 +1351,7 @@ def phase_async_loop(torch, dev, card: str, loop):
     lc, lm = slam.loop_closing, slam.local_mapping
     workers = (lm, slam._loop_worker)
     torch.cuda.synchronize()
-    k1c.launches = k2c.launches = 0
+    _reset_launches()
     rows, kf_new, overlap, loops, gba_frames = [], [], [], [], []
     with _timed_calls(torch) as solver_calls:
         for i, (img, depth) in enumerate(frames):
@@ -1217,7 +1368,7 @@ def phase_async_loop(torch, dev, card: str, loop):
         t0 = time.perf_counter()
         slam.shutdown()  # drains both queues and global BA; raises what a worker raised
         drain_s = time.perf_counter() - t0
-    launches = {"fused_frontend": k1c.launches, "pose_optimization_fused": k2c.launches}
+    launches = _read_launches()
     if lc.n_loops_closed > n_loops:
         loops.append(len(frames))  # closed while shutdown drained the queues
     if lc.gba.n_completed > n_gba:
@@ -1288,18 +1439,17 @@ def phase_eight(torch, dev, card: str):
     t0 = time.perf_counter()
     images = render_frames("eight", EIGHT_FRAMES, cam)  # once for both runs
     render_s = time.perf_counter() - t0
-    k1c, k2c = _launch_counters()
-    launches = {"fused_frontend": 0, "pose_optimization_fused": 0}
+    k1c, k2c, _ = _launch_counters()
+    launches = dict.fromkeys(LAUNCH_NAMES, 0)
     for async_mapping in (False, True):
         torch.cuda.synchronize()
-        k1c.launches = k2c.launches = 0
+        _reset_launches()
         t0 = time.perf_counter()
         tracer = Tracer()
         rec = run_sequence("eight", EIGHT_FRAMES, augment=True, async_mapping=async_mapping, camera=cam,
                            n_features=900, device=dev, images=images, tracer=tracer)
         wall = time.perf_counter() - t0
-        launches["fused_frontend"] += k1c.launches
-        launches["pose_optimization_fused"] += k2c.launches
+        _add_launches(launches, _read_launches())
         tag = "async" if async_mapping else "sync"
         gt = rec["gt_loops"]
         _check(rec["tracked"] >= rec["frames"] - 5 and rec["loops_closed"] >= 1 and gt["false_closures"] == 0
@@ -1405,8 +1555,8 @@ def phase_datasets(torch, dev, card: str):
     from orbslam2commentedbyxcm_tpu_torch.utils.config import load_settings
     from orbslam2commentedbyxcm_tpu_torch.utils.rectify import StereoRectifier
 
-    k1c, k2c = _launch_counters()
-    launches = {"fused_frontend": 0, "pose_optimization_fused": 0}
+    k1c = _launch_counters()[0]
+    launches = dict.fromkeys(LAUNCH_NAMES, 0)
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build", prefix="datasets_") as tmp:
         t0 = time.perf_counter()
@@ -1434,15 +1584,15 @@ def phase_datasets(torch, dev, card: str):
             argv = [*args, *DATASET_FLAGS, "--device", str(dev), "--trace", trace, "--out-prefix", prefix]
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            k1c.launches = k2c.launches = 0
+            _reset_launches()
             out = io.StringIO()
             t1 = time.perf_counter()
             with contextlib.redirect_stdout(out):
                 rc = run_dataset.main(argv)
             wall = time.perf_counter() - t1
-            k1, k2 = k1c.launches, k2c.launches
-            launches["fused_frontend"] += k1
-            launches["pose_optimization_fused"] += k2
+            run = _read_launches()
+            k1, k2 = run["fused_frontend"], run["pose_optimization_fused"]
+            _add_launches(launches, run)
             peak_mib = torch.cuda.max_memory_allocated() / 2**20
             text = out.getvalue()
             tail = text[-1500:]
@@ -1486,7 +1636,7 @@ def phase_datasets(torch, dev, card: str):
                 for i in range(N_VOCAB_IMAGES):
                     shutil.copy(Path(args[1]) / "sequences" / "00" / "image_0" / f"{3 * i:06d}.png", image_dir)
                 voc_path = str(Path(tmp) / "kitti_vocab.npz")
-                k1c.launches = 0
+                _reset_launches()
                 t1 = time.perf_counter()
                 with contextlib.redirect_stdout(io.StringIO()):
                     vrc = vocab_tools.main(["train", voc_path, str(image_dir), "--device", str(dev)])
@@ -1498,7 +1648,7 @@ def phase_datasets(torch, dev, card: str):
                 feats = ORBExtractor(n_features=cfg.n_features)(torch.from_numpy(frame.astype(np.float32)).to(dev))
                 _check(k1c.launches == k1_voc + 1, f"the transform frame's extraction: "
                        f"{k1c.launches - k1_voc} K1 launches, want 1")
-                launches["fused_frontend"] += k1c.launches
+                _add_launches(launches, _read_launches())
                 t1 = time.perf_counter()
                 words, groups, weights = bow.transform(voc, feats.desc, feats.valid)
                 transform_ms = 1e3 * (time.perf_counter() - t1)
@@ -1627,7 +1777,7 @@ def phase_mesh(torch, dev, card: str, loop, k2):
     # 1. the System over an 8-shard mesh at phase 12's size; only the
     # essential graph's gate is lowered (global BA's stays at 2048 points)
     cam, seq, frames, sync = loop["cam"], loop["seq"], loop["frames"], loop["sync"]
-    k1c, k2c = _launch_counters()
+    k2c = _launch_counters()[1]
     timer = _EventTimer(torch)
     mesh = make_mesh(8, device=dev)
     slam = System(cam, Sensor.RGBD, config=_loop_config(), vocabulary="bootstrap", mesh=mesh, device=dev)
@@ -1638,7 +1788,7 @@ def phase_mesh(torch, dev, card: str, loop, k2):
     loop_closing_mod.solve_pose_graph_dist = lambda *a, **kw: graphs.append(a) or solve_graph(*a, **kw)
     torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.synchronize()
-    k1c.launches = k2c.launches = 0
+    _reset_launches()
     rows, loops = [], []
     try:
         for i, (img, depth) in enumerate(frames):
@@ -1649,7 +1799,7 @@ def phase_mesh(torch, dev, card: str, loop, k2):
         slam.shutdown()
     finally:
         loop_closing_mod.solve_pose_graph_dist = solve_graph
-    launches = {"fused_frontend": k1c.launches, "pose_optimization_fused": k2c.launches}
+    launches = _read_launches()
     peak_mib = torch.cuda.max_memory_allocated(dev) / 2**20
     _check(all(r[0] is not None for r in rows), f"mesh: {sum(r[0] is None for r in rows)} frames not tracked")
     _check(not slam._archived_kf_trajectory, "mesh: tracking was lost and the System reset")
@@ -1938,7 +2088,6 @@ def phase_index(torch, dev, card: str, loop):
     from orbslam2commentedbyxcm_tpu_torch.utils.tracing import Tracer
 
     cam, frames = loop["cam"], loop["frames"][:N_INDEX]
-    k1c, k2c = _launch_counters()
     timer = _EventTimer(torch)
     for index in ("python", "native"):  # warm-up, untimed
         _index_run(torch, dev, cam, frames[:N_INDEX_WARM], index, timer, None)
@@ -1948,10 +2097,10 @@ def phase_index(torch, dev, card: str, loop):
         first_native = index == "native" and launches is None
         if first_native:
             torch.cuda.synchronize()
-            k1c.launches = k2c.launches = 0
+            _reset_launches()
         runs.append((index, *_index_run(torch, dev, cam, frames, index, timer, tracers[index])))
         if first_native:
-            launches = {"fused_frontend": k1c.launches, "pose_optimization_fused": k2c.launches}
+            launches = _read_launches()
     ref = next(r for r in runs if r[0] == "native")
     _check(ref[1].map.index == "native" and ref[1].keyframe_db.index == "native", "index: the native run is not native")
     _check(all(r[0] is not None for r in ref[2]), f"index: {sum(r[0] is None for r in ref[2])} frames lost")
@@ -2049,7 +2198,7 @@ def phase_index(torch, dev, card: str, loop):
           f"parse before its import: native.parse_dbow2_text {med_s(parse_s)}, import_dbow2_text "
           f"{med_s(import_s)} ({imported.n_words} words); the Python parser once {py_s:.3f} s | bit-equal to the "
           f"Python parser there and on k {DBOW2_CHECK[0]}, L {DBOW2_CHECK[1]} ({len(got[2])} nodes)")
-    k1c.launches, k2c.launches = launches["fused_frontend"], launches["pose_optimization_fused"]
+    _reset_launches(launches)
     return launches
 
 
@@ -2080,6 +2229,7 @@ def main() -> int:
 
     card = timed(1, phase_device, torch)
     timed(2, phase_build)
+    pyramid = timed("3 pyramid", phase_pyramid, torch, dev)
     k1 = timed(3, phase_k1, torch, dev)
     k2 = timed(4, phase_k2, torch, dev)
     timed(5, phase_flagship, torch, dev)
@@ -2097,6 +2247,9 @@ def main() -> int:
     launches = {name: sum(r[name] for r in runs) for name in runs[0]}
     for r in runs:
         _check(all(r.values()), f"a kernel of the main path was never launched: {r}")
+        # one pyramid call per K1 launch: 3 launches with the gain, 1 without
+        _check(r["fused_frontend"] <= r["pyramid_resize"] <= 3 * r["fused_frontend"],
+               f"not one pyramid call per K1 launch: {r}")
     kernels = [
         {"name": "fused_frontend", "route": "cuda",
          "source": "orbslam2commentedbyxcm_tpu_torch/csrc/frontend.cu",
@@ -2106,13 +2259,22 @@ def main() -> int:
          "source": "orbslam2commentedbyxcm_tpu_torch/csrc/poseopt.cu",
          "replaces": "orbslam2commentedbyxcm_tpu/ops/pallas_poseopt.py:300",
          "launches": launches["pose_optimization_fused"], **k2},
+        {"name": "pyramid_resize", "route": "cuda",
+         "source": "orbslam2commentedbyxcm_tpu_torch/csrc/pyramid.cu",
+         "replaces": "orbslam2commentedbyxcm_tpu/ops/orb.py:337-339",
+         "launches": launches["pyramid_resize"], **pyramid},
     ]
     print(f"[18 total] {time.perf_counter() - t0:.1f} s; by phase: "
           + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}))
+    print(_ok_line(torch))
     return 0
+
+
+def _ok_line(torch) -> str:
+    """The last line of a run whose every phase passed."""
+    return json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                              "count": torch.cuda.device_count()}})
 
 
 if __name__ == "__main__":

@@ -15,8 +15,9 @@ machines without a CUDA toolkit, and only `library()` needs nvcc.
 compiler (g++), which the CPU machines have too, and raises if it cannot:
 nothing falls back to Python in its place.
 
-No --use_fast_math: the frontend kernel's blur must round as its torch twin
-does, and the pose solve relies on IEEE division, sqrt, sin, cos.
+No --use_fast_math: the frontend kernel's blur and the pyramid kernel's
+gain and resize must round as their torch twins do, and the pose solve
+relies on IEEE division, sqrt, sin, cos.
 """
 
 from __future__ import annotations
@@ -46,6 +47,11 @@ _SIGNATURES = {
     "orb_frontend_set_taps": [_P],
     # int orb_frontend_pyramid(levels, out, total, table (host), n_levels, th_hi, th_lo, stream)
     "orb_frontend_pyramid": [_P, _P, _I, _P, _I, _F, _F, _P],
+    # int orb_gain_stats(img, n, mean_part, mad_part, stream)
+    "orb_gain_stats": [_P, _I, _P, _P, _P],
+    # int orb_pyramid_resize(img, h, w, mean_part, mad_part, target, starts, weights, out, total,
+    #                        table (host), n_levels, max_win, stream)
+    "orb_pyramid_resize": [_P, _I, _I, _P, _P, _F, _P, _P, _P, _I, _P, _I, _I, _P],
     # int pose_opt(t_in, pts, obs, mask, isig, n, fx, fy, cx, cy, bf, n_rounds, n_iters,
     #              t_out, inliers, counts, chi2, stream)
     "pose_opt": [_P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P, _P, _P],

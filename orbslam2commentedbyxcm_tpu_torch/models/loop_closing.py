@@ -6,8 +6,10 @@ src/LoopClosing.cc):
 
   DetectLoop (:101)    BoW candidates gated by the minimum covisible score
                        and 3-consecutive-group consistency
-  ComputeSim3 (:236)   all candidates' KF <-> KF matching in one batch, their
-                       Sim3 RANSAC (Horn) in one batch, then per survivor
+  ComputeSim3 (:236)   all candidates' KF <-> KF matching in one batch (with
+                       the reference's orientation check, which the JAX
+                       package lacks), their Sim3 RANSAC (Horn) in one
+                       batch, then per survivor
                        SearchBySim3 match growing (src/ORBmatcher.cc:1361)
                        and the Sim3 refinement (>= 20 inliers), then a
                        Sim3-guided projection search (>= 40 matches)
@@ -368,16 +370,21 @@ class LoopClosing:
         in one batch. A candidate whose grouping nodes are known is matched
         through them, one without by plain Hamming, each on its own (the JAX
         package drops the whole batch to plain Hamming when any candidate
-        lacks its nodes). Returns [(idx, ok)] per candidate."""
+        lacks its nodes). Each candidate's matches then keep only the three
+        dominant orientation-difference bins, as the reference's SearchByBoW
+        does (mbCheckOrientation, src/ORBmatcher.cc:783-806; the JAX package
+        has no such check). Returns [(idx, ok)] per candidate."""
         t = max(len(their) for *_, their in batch)
         c = len(batch)
         c_desc = np.zeros((c, t, 8), np.uint32)
+        c_angle = np.zeros((c, t), np.float32)
         c_nodes = np.full((c, t), -1, np.int64)
         c_valid = np.zeros((c, t), bool)
         use_bow = np.zeros(c, bool)
         q_bow = kf.bow_feat_nodes is not None
         for i, (_, ckf, their) in enumerate(batch):
             c_desc[i, : len(their)] = ckf.desc[their]
+            c_angle[i, : len(their)] = ckf.angle[their]
             c_valid[i, : len(their)] = True
             if q_bow and ckf.bow_feat_nodes is not None:
                 use_bow[i] = True
@@ -387,6 +394,8 @@ class LoopClosing:
             self._tensor(kf.desc[my].view(np.int32)), self._tensor(a_nodes, np.int64),
             self._tensor(c_desc.view(np.int32)), self._tensor(c_nodes), self._tensor(c_valid),
             self._tensor(use_bow))
+        a_angle, c_angle = self._tensor(kf.angle[my], np.float32), self._tensor(c_angle)
+        ok = torch.stack([matching.rotation_consistency(a_angle, c_angle[i], idx[i], ok[i]) for i in range(c)])
         idx, ok = idx.cpu().numpy(), ok.cpu().numpy()
         return [(idx[i], ok[i]) for i in range(c)]
 

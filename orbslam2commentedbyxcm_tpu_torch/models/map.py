@@ -166,6 +166,11 @@ class Map:
         self.pt_valid[pid] = True
         self.pt_ref_kf[pid] = ref_kf_id
         self.pt_first_kf[pid] = ref_kf_id
+        # the reference's MapPoint starts both counters at 1, so a new point
+        # passes MapPointCulling's found ratio until tracking has counted it
+        # (the JAX package starts them at 0, which culls a keyframe's depth
+        # points at its own insertion)
+        self.pt_visible[pid] = self.pt_found[pid] = 1
         self.obs[pid] = {}
         self.pt_version += 1
         return pid

@@ -7,11 +7,18 @@ and the same Gaussian-moment orientation and rotated BRIEF descriptors
 (ops/descriptors). Descriptors are 256 bits, packed as (N, 8) int32 words
 holding the JAX package's uint32 bit patterns.
 
-The level images are built into one flat buffer, and blur + FAST + NMS over
-all of them is one launch of a hand-written CUDA kernel for CUDA tensors
-(ops/frontend_kernel, csrc/frontend.cu). `_separable_blur`, `_fast_maps` and
-`_nms3` below are its plain twin, with the XLA path's border semantics, and
-run for CPU tensors.
+The exposure gain and the level images are computed by one hand-written CUDA
+kernel for CUDA tensors (ops/pyramid_kernel, csrc/pyramid.cu) into one flat
+buffer, and blur + FAST + NMS over all of them is one launch of another
+(ops/frontend_kernel, csrc/frontend.cu). `_pyramid_plain` (with
+`_exposure_gain` and `_tree_sum`) and `_separable_blur`, `_fast_maps` and
+`_nms3` below are their plain twins, bit for bit, and run for CPU tensors;
+so the CPU computes the very level images the card does. The frontend twin
+has the XLA path's border semantics. The pyramid twin sums each resize's
+nonzero taps in ascending order with fused multiply-adds and the gain's
+mean and MAD as adjacent-pair trees: orders of its own, which the JAX
+package's XLA dot and mean do not share, so levels >= 1 and the gain differ
+from JAX's by f32 ulps.
 """
 
 from __future__ import annotations
@@ -101,7 +108,8 @@ def _gauss_kernel(size: int = 7, sigma: float = 2.0) -> np.ndarray:
 def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
     """(n_out, n_in) linear-resize weight matrix (triangle kernel widened by
     the downscale factor, column-normalized), as jax.image.resize(linear,
-    antialias=True) builds it."""
+    antialias=True) builds it. The extractor uses it through `_resize_taps`;
+    the JAX package multiplies by the whole matrix."""
     scale = n_out / n_in
     sample_f = (np.arange(n_out) + 0.5) / scale - 0.5
     x = np.abs(sample_f[None, :] - np.arange(n_in)[:, None]) * min(scale, 1.0)
@@ -109,6 +117,111 @@ def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
     tot = wgt.sum(axis=0, keepdims=True)
     wgt = np.where(tot > 0, wgt / tot, 0.0)
     return np.ascontiguousarray(wgt.T.astype(np.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def _resize_taps(n_in: int, n_out: int) -> tuple[np.ndarray, np.ndarray]:
+    """The nonzero run of each row of `_resize_weights(n_in, n_out)` ->
+    (start int32[n_out], w float32[n_out, T]): output i is the sum over k of
+    w[i, k] * x[start[i] + k], T the widest run. The weights are the
+    matrix's float32 values in ascending input index, zero-padded to T; a
+    row whose run ends near n_in starts earlier, with leading zeros, so
+    every tap reads inside the input. Zero taps change no sum that starts
+    from +0.0, so the dense matrix and the table give the same products."""
+    wgt = _resize_weights(n_in, n_out)
+    nz = wgt != 0
+    first = nz.argmax(1)
+    last = n_in - 1 - nz[:, ::-1].argmax(1)
+    taps = int((last - first + 1).max())
+    start = np.minimum(first, n_in - taps).astype(np.int32)
+    w = np.take_along_axis(wgt, start[:, None] + np.arange(taps), 1)
+    return start, np.ascontiguousarray(w)
+
+
+_F32_MID, _F32_LOW = 1 << 28, (1 << 29) - 1  # bit 28 and bits 0-28 of a float64 mantissa
+_F32_TINY = 2.0**-126  # least normal float32
+
+
+def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """fmaf(a, b, c), correctly rounded: a and b float64 tensors that hold
+    float32 values, c float32 -> float32 (the CUDA kernel's __fmaf_rn).
+
+    a * b is exact in float64. p + c rounded to float64 and then to float32
+    is the correctly rounded sum except where the float64 sum lands exactly
+    on a float32 rounding midpoint (bit 28 set, bits 0-27 clear) or in the
+    float32 subnormal range: there the sum is redone with round-to-odd (the
+    exact TwoSum error moves an even result one float64 step toward it),
+    which then rounds to float32 correctly (Boldo and Melquiond)."""
+    p = a * b
+    c = c.double()
+    s = p + c
+    bits = s.view(torch.int64)
+    maybe = ((bits & _F32_LOW) == _F32_MID) | ((s.abs() < _F32_TINY) & (s != 0))
+    if bool(maybe.any()):
+        a1 = s - c
+        err = (p - a1) + (c - (s - a1))
+        odd = torch.nextafter(s, err * torch.inf)
+        s = torch.where(maybe & (err != 0) & ((bits & 1) == 0), odd, s)
+    return s.float()
+
+
+def _tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """float32 sum of x as the adjacent-pair halving tree over its flat
+    values, zero-padded to a power of two: the order csrc/pyramid.cu sums in."""
+    x = x.reshape(-1)
+    x = F.pad(x, (0, (1 << (x.numel() - 1).bit_length()) - x.numel()))
+    while x.numel() > 1:
+        x = x[0::2] + x[1::2]
+    return x[0]
+
+
+def _exposure_gain(img: torch.Tensor, target_mad: float) -> torch.Tensor:
+    """img rescaled about its mean to a mean absolute deviation of
+    `target_mad`, the gain capped to [1/8, 8]: every step a separately
+    rounded float32 operation, the sums `_tree_sum`s."""
+    n = img.new_tensor(img.numel())
+    mu = _tree_sum(img) / n
+    mad = _tree_sum((img - mu).abs()) / n
+    gain = torch.clamp(img.new_tensor(target_mad) / torch.clamp(mad, min=1e-3), 0.125, 8.0)
+    return (img - mu) * gain + mu
+
+
+@functools.lru_cache(maxsize=64)
+def _taps_on(n_in: int, n_out: int, device: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """`_resize_taps` as (gather index int64 (n_out, T), weights float64 (n_out, T)) on `device`."""
+    start, w = _resize_taps(n_in, n_out)
+    index = torch.from_numpy(start.astype(np.int64)[:, None] + np.arange(w.shape[1]))
+    return index.to(device), torch.from_numpy(w).double().to(device)
+
+
+def _resize_pass(x: torch.Tensor, n_out: int) -> torch.Tensor:
+    """(n_in, m) float32 -> (m, n_out) float32: row i of the result is the
+    resize of column i of x over its first axis, each output the
+    ascending-tap fma chain of its nonzero taps from +0.0."""
+    index, w = _taps_on(x.shape[0], n_out, str(x.device))
+    x = x.to(torch.float64, memory_format=torch.contiguous_format)
+    rows = x.index_select(0, index.reshape(-1)).view(n_out, -1, x.shape[1])
+    acc = torch.zeros((n_out, x.shape[1]), dtype=torch.float32, device=x.device)
+    for k in range(w.shape[1]):
+        acc = _fma_f32(w[:, k, None], rows[:, k], acc)
+    return acc.T
+
+
+def _pyramid_plain(img: torch.Tensor, table, exposure_target: float | None = None) -> torch.Tensor:
+    """Plain twin of csrc/pyramid.cu: (H, W) float32 image -> the flat
+    float32 buffer laid out by `table` (ops/frontend_kernel.LevelTable).
+    Level 0 is the image, rescaled by `_exposure_gain` when
+    `exposure_target` is given; level l > 0 resizes level 0 to its shape,
+    the vertical pass over the image's rows, then the horizontal pass over
+    that result's columns, each `_resize_pass`. Every level resizes from
+    level 0, as the JAX package does."""
+    if exposure_target is not None:
+        img = _exposure_gain(img, exposure_target)
+    buf = torch.empty(table.total, dtype=torch.float32, device=img.device)
+    for lvl, (off, (hl, wl)) in enumerate(zip(table.offsets, table.shapes)):
+        view = buf[off : off + hl * wl].view(hl, wl)
+        view.copy_(img if lvl == 0 else _resize_pass(_resize_pass(img, hl), wl))
+    return buf
 
 
 def fast_response(ups):
@@ -174,9 +287,10 @@ def _reflect_index(n: int, pad: int, device) -> torch.Tensor:
 class ORBExtractor:
     """Batched ORB extractor producing fixed-capacity FrameFeatures.
 
-    Same constructor as the JAX ORBExtractor, without `use_pallas`: blur +
-    FAST + NMS over the whole pyramid run through ops/frontend_kernel, one
-    CUDA kernel launch for CUDA tensors and its twin for CPU tensors.
+    Same constructor as the JAX ORBExtractor, without `use_pallas`: the
+    gain and the pyramid run through ops/pyramid_kernel, then blur + FAST +
+    NMS over the whole pyramid through ops/frontend_kernel, hand-written
+    CUDA kernels for CUDA tensors and their twins for CPU tensors.
     """
 
     def __init__(
@@ -223,7 +337,6 @@ class ORBExtractor:
         kmx[lo:hi, lo:hi] = np.outer(g, xg)   # m10: g(y) rows, x*g(x) cols
         kmy[lo:hi, lo:hi] = np.outer(xg, g)   # m01: y*g(y) rows, g(x) cols
         self._kmx, self._kmy = kmx, kmy
-        self._weights: dict = {}  # (device, n_in, n_out) -> resize matrix
 
     def __call__(self, image) -> FrameFeatures:
         """image: (H, W) uint8/float32 numpy array or tensor -> FrameFeatures
@@ -233,47 +346,28 @@ class ORBExtractor:
             raise ValueError(f"expected an (H, W) image, got shape {tuple(img.shape)}")
         return self._extract(img.float())
 
-    def _resize_matrix(self, n_in: int, n_out: int, device) -> torch.Tensor:
-        key = (str(device), n_in, n_out)
-        m = self._weights.get(key)
-        if m is None:
-            m = torch.from_numpy(_resize_weights(n_in, n_out)).to(device)
-            self._weights[key] = m
-        return m
-
     # -- pipeline ----------------------------------------------------------
 
     def _pyramid(self, img: torch.Tensor):
-        """All level images in one flat float32 buffer -> (buffer, LevelTable).
-        Level l > 0 is the resize matmul wh @ img @ ww.T, written into its
-        view of the buffer."""
-        from orbslam2commentedbyxcm_tpu_torch.ops.frontend_kernel import level_table, level_views
+        """The exposure gain (when on) and all level images in one flat
+        float32 buffer -> (buffer, LevelTable): ops/pyramid_kernel, one
+        kernel launch on the card (three with the gain), the twin
+        `_pyramid_plain` on the CPU, the same bits on both. The gain is
+        capped to [1/8, 8] so a near-flat frame stays feature-poor."""
+        from orbslam2commentedbyxcm_tpu_torch.ops.frontend_kernel import level_table
+        from orbslam2commentedbyxcm_tpu_torch.ops.pyramid_kernel import pyramid_resize
 
         h, w = img.shape
         table = level_table(tuple(
             (max(16, int(round(h / s))), max(16, int(round(w / s)))) for s in self.scales
         ))
-        buf = torch.empty(table.total, dtype=torch.float32, device=img.device)
-        for lvl, view in enumerate(level_views(buf, table)):
-            if lvl == 0:
-                view.copy_(img)
-            else:
-                hl, wl = view.shape
-                wh = self._resize_matrix(h, hl, img.device)
-                ww = self._resize_matrix(w, wl, img.device)
-                torch.matmul(wh @ img, ww.T, out=view)
-        return buf, table
+        target = self.exposure_target_mad if self.normalize_exposure else None
+        return pyramid_resize(img.contiguous(), table, target), table
 
     def _extract(self, img: torch.Tensor) -> FrameFeatures:
         # imported here: frontend_kernel imports this module for the twin
         from orbslam2commentedbyxcm_tpu_torch.ops.frontend_kernel import fused_frontend_pyramid, level_views
 
-        if self.normalize_exposure:
-            # gain capped to [1/8, 8] so a near-flat frame stays feature-poor
-            mu = img.mean()
-            mad = (img - mu).abs().mean()
-            gain = torch.clamp(self.exposure_target_mad / torch.clamp(mad, min=1e-3), 0.125, 8.0)
-            img = (img - mu) * gain + mu
         buf, table = self._pyramid(img)
         maps = fused_frontend_pyramid(buf, table, self.ini_th, self.min_th)
         outs = [

@@ -4,13 +4,17 @@ map save / load across the two packages.
 
 The JAX System (RGB-D, the shipped vocabulary, loop closing on) runs a
 320x240 BoxSequence orbit of 1.3 turns over 110 frames until a keyframe
-closes the loop (frame 87). Before every keyframe enters the JAX loop closer
+closes the loop (frame 85). Before every keyframe enters the JAX loop closer
 the map is copied (`convert.map_from_jax`) with the closer's state, so the
 port's LoopClosing gets the very map and state the JAX one closed the loop
 from, and the JAX package's RANSAC draws (jax.random cannot be reproduced in
 torch). Both maps keep the observation index in Python and list
 `points_seen_by` in sorted order (the JAX run is told to; its C++ index lists
-them in hash order), so ties break alike.
+them in hash order), so ties break alike. The port's KF <-> KF matching keeps
+the reference's orientation check (SearchByBoW's three dominant
+orientation-difference bins), which the JAX package lacks: the JAX closer
+here is given the same check (`_with_orientation_check`), so both closers
+start their RANSAC from the same matches.
 
 Bars: the same accepted candidate, loop edges and loop-closer stats; the
 same points alive and every keyframe pose and point within 1e-3 once the
@@ -60,6 +64,7 @@ from orbslam2commentedbyxcm_tpu_torch.models.keyframe_database import KeyFrameDa
 from orbslam2commentedbyxcm_tpu_torch.models.local_mapping import assemble_ba_problem
 from orbslam2commentedbyxcm_tpu_torch.models.loop_closing import LoopClosing, match_candidates
 from orbslam2commentedbyxcm_tpu_torch.models.map import Map
+from orbslam2commentedbyxcm_tpu_torch.ops import matching as tmatching
 from orbslam2commentedbyxcm_tpu_torch.ops import bow as tbow
 from orbslam2commentedbyxcm_tpu_torch.ops import posegraph as tposegraph
 from orbslam2commentedbyxcm_tpu_torch.utils import convert
@@ -74,6 +79,23 @@ class _Done(Exception):
     pass
 
 
+def _with_orientation_check(jlc):
+    """Keep only the JAX closer's KF <-> KF matches in the three dominant
+    orientation-difference bins, as the port's closer does."""
+    match = jlc._match_candidates_batched
+
+    def matched(kf, my, batch):
+        out = []
+        for (_, ckf, their), (idx, ok) in zip(batch, match(kf, my, batch)):
+            rows = torch.from_numpy(np.minimum(idx, len(their) - 1).astype(np.int64))
+            ok = tmatching.rotation_consistency(torch.from_numpy(kf.angle[my]), torch.from_numpy(ckf.angle[their]),
+                                                rows, torch.from_numpy(ok))
+            out.append((idx, ok.numpy()))
+        return out
+
+    jlc._match_candidates_batched = matched
+
+
 @pytest.fixture(scope="module")
 def loop_case():
     """The JAX System up to its first closed loop: the map and loop-closer
@@ -84,6 +106,7 @@ def loop_case():
                                                    motion_search_radius=20.0),
                  vocabulary="bootstrap", enable_loop_closing=True)
     jm, jlc = js.map, js.loop_closing
+    _with_orientation_check(jlc)
     jm._native = None  # the dict-backed observation index, as the port's
     seen_by = jm.points_seen_by
     jm.points_seen_by = lambda ids: np.sort(seen_by(ids))
@@ -296,8 +319,8 @@ def test_three_phases_equal_process_prepared(loop_case, voc):
 
 def test_snapshot_try_close_matches_jax(loop_case, voc):
     """try_close on a snapshot against the JAX package's try_close(snapshot=)
-    on the same map and candidates, with the same RANSAC draws: the same
-    survivors, each corrected Sim3 within 1e-3."""
+    (given the orientation check) on the same map and candidates, with the
+    same RANSAC draws: the same survivors, each corrected Sim3 within 1e-3."""
     from orbslam2commentedbyxcm_tpu.models.loop_closing import LoopClosing as JLoopClosing
 
     before, _ = loop_case
@@ -308,6 +331,7 @@ def test_snapshot_try_close_matches_jax(loop_case, voc):
     stats = dict(lc.stats)
     found = lc.try_close(kf, candidates, snapshot=lc.snapshot_for_closure(kf, candidates))
     jlc = JLoopClosing(m, CAM, fix_scale=True)
+    _with_orientation_check(jlc)
     jlc._sim3_cooldown = dict(before["cooldown"])
     jlc._key = before["key"]
     jfound = jlc.try_close(kf, candidates, snapshot=jlc.snapshot_for_closure(kf, candidates))

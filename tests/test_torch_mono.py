@@ -7,9 +7,11 @@ two-keyframe map of the JAX run's initialization, carried across with
 unit median depth. Then both Systems run SyntheticSequence("sideways") at
 320x240 with 600 features for 30 frames (no vocabulary: each trains one
 lazily once its map holds 5 keyframes). The two draw their RANSAC samples from different
-generators and their extractors differ by ulps at levels >= 1, so the runs
-are held to one accuracy class: the port tracks >= 20 frames, its Sim3 ATE
-is at most 1.5 x the JAX package's + 1 cm, its map holds >= 100 points. A
+generators and their extractors differ by ulps in the exposure gain and at
+levels >= 1 (the port's fixed-order sums, the same bits on the CPU and the
+card, against XLA's mean and dot), so the runs are held to one accuracy
+class: the port tracks >= 20 frames, its Sim3 ATE is at most 1.5 x the JAX
+package's + 1 cm, its map holds >= 100 points. A
 blank frame on a young map resets the System; localization mode leaves
 keyframes and points as they were.
 """

@@ -2,12 +2,17 @@
 
 What must agree exactly: the keypoint selection (valid mask, uv, level,
 response), including the top-k tie order, whenever both packages see the same
-level image. What cannot: the pyramid resize is an f32 matrix product whose
-summation order differs between XLA's CPU dot and torch's BLAS, so levels >= 1
-differ by f32 ulps, and on images with flat regions (many tied FAST scores)
-that moves a few keypoints there. Descriptors are held bit-equal on >= 99% of
-common keypoints: the orientation moments are an f32 reduction in another
-order, which can flip the rounding of a rotated sample position.
+level image. What cannot: the JAX pyramid resize is an f32 matrix product in
+XLA's CPU dot order, and the port's (ops/orb `_pyramid_plain`, the same bits
+on the CPU and on the card) sums each output's nonzero taps in ascending
+order with fused multiply-adds; so levels >= 1 differ by f32 ulps (XLA's
+first product is mostly reproduced, its second is not: see
+tests/test_torch_pyramid_resize.py), and on images with flat regions (many
+tied FAST scores) that moves a few keypoints there. The exposure gain's mean
+and MAD are trees of the port's own, so the gain differs from JAX's in its
+last bits. Descriptors are held bit-equal on >= 99% of common keypoints: the
+orientation moments are an f32 reduction in another order, which can flip the
+rounding of a rotated sample position.
 """
 
 import jax
@@ -22,7 +27,7 @@ from orbslam2commentedbyxcm_tpu.utils.synth import BoxSequence as JBoxSequence
 from orbslam2commentedbyxcm_tpu.utils.synth import default_camera as j_default_camera
 from orbslam2commentedbyxcm_tpu_torch.ops.descriptors import descriptors_from_windows as t_desc
 from orbslam2commentedbyxcm_tpu_torch.ops.frontend_kernel import fused_frontend
-from orbslam2commentedbyxcm_tpu_torch.ops.orb import _resize_weights
+from orbslam2commentedbyxcm_tpu_torch.ops.orb import _resize_pass
 from orbslam2commentedbyxcm_tpu_torch.utils import convert
 
 torch.set_num_threads(1)
@@ -74,8 +79,7 @@ def _level_images(img, ext):
         if lvl == 0:
             out.append((img, hl, wl))
         else:
-            m = torch.from_numpy(_resize_weights(H, hl)) @ t @ torch.from_numpy(_resize_weights(W, wl)).T
-            out.append((m.numpy(), hl, wl))
+            out.append((_resize_pass(_resize_pass(t, hl), wl).contiguous().numpy(), hl, wl))
     return out
 
 

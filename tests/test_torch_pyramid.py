@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from orbslam2commentedbyxcm_tpu_torch.ops import frontend_kernel as fk
-from orbslam2commentedbyxcm_tpu_torch.ops.orb import ORBExtractor, _resize_weights
+from orbslam2commentedbyxcm_tpu_torch.ops.orb import ORBExtractor, _exposure_gain, _resize_pass
 
 torch.set_num_threads(1)
 
@@ -72,22 +72,19 @@ def test_pyramid_wrapper_on_cpu_equals_plain_per_level(rng, kind):
 
 def _per_level_extract(ext, img):
     """The extractor as it ran before its pyramid buffer: each level image a
-    separate tensor (level 0 the image itself), run through the single-level
-    frontend and the per-level selection."""
+    separate tensor (level 0 the image itself, level l its two resize passes
+    of ops/orb), run through the single-level frontend and the per-level
+    selection."""
     from orbslam2commentedbyxcm_tpu_torch.ops.descriptors import descriptors_from_windows
     from orbslam2commentedbyxcm_tpu_torch.ops.orb import FrameFeatures
 
     h, w = img.shape
     if ext.normalize_exposure:
-        mu = img.mean()
-        mad = (img - mu).abs().mean()
-        gain = torch.clamp(ext.exposure_target_mad / torch.clamp(mad, min=1e-3), 0.125, 8.0)
-        img = (img - mu) * gain + mu
+        img = _exposure_gain(img, ext.exposure_target_mad)
     outs = []
     for lvl, s in enumerate(ext.scales):
         hl, wl = max(16, round(h / s)), max(16, round(w / s))
-        wh, ww = (torch.from_numpy(_resize_weights(n, m)) for n, m in ((h, hl), (w, wl)))
-        level = img if lvl == 0 else wh @ img @ ww.T
+        level = img if lvl == 0 else _resize_pass(_resize_pass(img, hl), wl).contiguous()
         outs.append(ext._select_level(*fk.fused_frontend(level, ext.ini_th, ext.min_th), lvl))
     uv, resp, level, patches, valid = (torch.cat([o[i] for o in outs]) for i in range(5))
     desc, ang = descriptors_from_windows(patches, ext._pattern, ext._kmx, ext._kmy)
