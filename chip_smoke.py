@@ -19,10 +19,12 @@ twins. Phases, each printing one line:
               inverted file, DBoW2 parser; one g++ per source, in parallel)
   3. pyramid  the exposure gain and pyramid kernel vs its twin, on the card and
               on the CPU (bit-equal on every level), gain on and off, on a
-              rendered frame and a random image at 640x480, 752x480 and
-              1241x376; device time (torch.profiler), call time, twin time,
-              bound, and the device time of the 14 torch.matmul calls it
-              replaced; then the whole extractor on the card against the
+              rendered frame and a random image at 640x480, 752x480,
+              1241x376 and 1920x1080 (2025 gain partials: more than one
+              chunk); one launch per call either way; device time
+              (torch.profiler), call time, twin time, bound, and the device
+              time of the 14 torch.matmul calls it replaced; then the whole
+              extractor on the card against the
               same extractor on the CPU, each on its own: keypoints (valid,
               uv, level, response) bit-equal, angles within 1e-5 at 640x480
               (printed at the dataset sizes), descriptors differing on at most
@@ -115,8 +117,8 @@ twins. Phases, each printing one line:
               seconds, the Python parser's once, bit-equal to it there and
               at L 4
  18. kernels  one JSON line: per kernel, launches summed over phases 6-17
-              (the pyramid kernel's as calls: three launches each with the
-              gain, which the main path has on), error, times, bound
+              (the pyramid kernel's one per extraction, as K1's), error,
+              times, bound
 
 The last line is {"ok": true, "device": {...}}. Any failed phase exits non-zero
 without that line. Without a CUDA device it exits 2 and prints no result.
@@ -475,12 +477,15 @@ def phase_pyramid(torch, dev):
     rng = np.random.default_rng(0)
     target = ORBExtractor().exposure_target_mad
     n_checked = 0
-    for w, h in ((640, 480),) + K1_DATASET_SIZES:
+    for w, h in ((640, 480),) + K1_DATASET_SIZES + ((1920, 1080),):
         frame = BoxSequence(camera=default_camera(w, h), seed=5, n_frames=100, turns=0.35).render(0)
         for kind, img in (("frame", frame), ("uint8", rng.integers(0, 256, (h, w)))):
             img = torch.from_numpy(img.astype(np.float32))
             for gain in (None, target):
+                before = pk.pyramid_resize.launches
                 buf, table = ORBExtractor(n_features=1000, normalize_exposure=gain is not None)._pyramid(img.to(dev))
+                _check(pk.pyramid_resize.launches == before + 1,
+                       f"pyramid_resize {w}x{h} gain {gain}: {pk.pyramid_resize.launches - before} launches for a call")
                 for where, ref in (("card", _pyramid_plain(img.to(dev), table, gain)),
                                    ("CPU", _pyramid_plain(img, table, gain))):
                     levels = zip(fk.level_views(buf.cpu(), table), fk.level_views(ref.cpu(), table))
@@ -497,8 +502,8 @@ def phase_pyramid(torch, dev):
     gained = lambda: pk.pyramid_resize(img, table, target)  # noqa: E731
     plain = lambda: pk.pyramid_resize(img, table)  # noqa: E731
     call_ms, resize_call_ms = _cuda_ms(gained, 200), _cuda_ms(plain, 200)
-    device_ms, _ = _device_ms(gained, 50, ("pyramid_resize", "gain_sum"), per_call=3)
-    resize_ms, _ = _device_ms(plain, 50, "pyramid_resize", per_call=1)
+    device_ms, _ = _device_ms(gained, 50, "pyramid_fused", per_call=1)
+    resize_ms, _ = _device_ms(plain, 50, "pyramid_fused", per_call=1)
     plain_ms = _cuda_ms(lambda: _pyramid_plain(img, table, target), 10)
     mats = [(torch.from_numpy(_resize_weights(h, hl)).to(dev), torch.from_numpy(_resize_weights(w, wl)).to(dev))
             for hl, wl in table.shapes[1:]]
@@ -512,8 +517,8 @@ def phase_pyramid(torch, dev):
     bound_ms, bound_by = _bound(pyramid_ops(h, w, table, True), 4 * (h * w + n_px))
     resize_bound_ms, _ = _bound(pyramid_ops(h, w, table, False), 4 * (h * w + n_px))
     print(f"[3 pyramid] gain + 8 levels bit-equal to the twin on the card and on the CPU in {n_checked} cases "
-          f"(640x480, 752x480, 1241x376; frame and random; gain on and off) | 640x480 frame, gain on (3 launches "
-          f"per extraction): device {device_ms:.4f} ms (torch.profiler), call {call_ms:.4f} ms (CUDA events), "
+          f"(640x480, 752x480, 1241x376, 1920x1080; frame and random; gain on and off) | 640x480 frame, gain on "
+          f"(1 launch per extraction): device {device_ms:.4f} ms (torch.profiler), call {call_ms:.4f} ms (CUDA events), "
           f"twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / device_ms:.1f}% of "
           f"device); gain off (1 launch): device {resize_ms:.4f} ms, call {resize_call_ms:.4f} ms, bound "
           f"{resize_bound_ms:.4f} ms | the 14 torch.matmul calls it replaced: device {library_ms:.4f} ms "
@@ -542,7 +547,7 @@ def phase_pyramid(torch, dev):
     return {"max_abs_err": 0.0, "ms": device_ms, "device_ms": device_ms, "call_ms": call_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
             "library_call_ms": library_call_ms, "gain_off_device_ms": resize_ms,
-            "gain_off_call_ms": resize_call_ms, "gain_off_bound_ms": resize_bound_ms, "kernel_launches_per_call": 3}
+            "gain_off_call_ms": resize_call_ms, "gain_off_bound_ms": resize_bound_ms, "kernel_launches_per_call": 1}
 
 
 FX = FY = 500.0
@@ -2247,9 +2252,8 @@ def main() -> int:
     launches = {name: sum(r[name] for r in runs) for name in runs[0]}
     for r in runs:
         _check(all(r.values()), f"a kernel of the main path was never launched: {r}")
-        # one pyramid call per K1 launch: 3 launches with the gain, 1 without
-        _check(r["fused_frontend"] <= r["pyramid_resize"] <= 3 * r["fused_frontend"],
-               f"not one pyramid call per K1 launch: {r}")
+        # one pyramid launch per K1 launch: both run once per extraction
+        _check(r["pyramid_resize"] == r["fused_frontend"], f"not one pyramid launch per K1 launch: {r}")
     kernels = [
         {"name": "fused_frontend", "route": "cuda",
          "source": "orbslam2commentedbyxcm_tpu_torch/csrc/frontend.cu",

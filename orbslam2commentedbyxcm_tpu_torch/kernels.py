@@ -47,11 +47,9 @@ _SIGNATURES = {
     "orb_frontend_set_taps": [_P],
     # int orb_frontend_pyramid(levels, out, total, table (host), n_levels, th_hi, th_lo, stream)
     "orb_frontend_pyramid": [_P, _P, _I, _P, _I, _F, _F, _P],
-    # int orb_gain_stats(img, n, mean_part, mad_part, stream)
-    "orb_gain_stats": [_P, _I, _P, _P, _P],
-    # int orb_pyramid_resize(img, h, w, mean_part, mad_part, target, starts, weights, out, total,
-    #                        table (host), n_levels, max_win, stream)
-    "orb_pyramid_resize": [_P, _I, _I, _P, _P, _F, _P, _P, _P, _I, _P, _I, _I, _P],
+    # int orb_pyramid(img, h, w, part, n_part_words, target, records, n_records, out, total, table (host),
+    #                 n_levels, device, stream)
+    "orb_pyramid": [_P, _I, _I, _P, _I, _F, _P, _I, _P, _I, _P, _I, _I, _P],
     # int pose_opt(t_in, pts, obs, mask, isig, n, fx, fy, cx, cy, bf, n_rounds, n_iters,
     #              t_out, inliers, counts, chi2, stream)
     "pose_opt": [_P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P, _P, _P],

@@ -351,7 +351,7 @@ class ORBExtractor:
     def _pyramid(self, img: torch.Tensor):
         """The exposure gain (when on) and all level images in one flat
         float32 buffer -> (buffer, LevelTable): ops/pyramid_kernel, one
-        kernel launch on the card (three with the gain), the twin
+        kernel launch on the card with the gain on or off, the twin
         `_pyramid_plain` on the CPU, the same bits on both. The gain is
         capped to [1/8, 8] so a near-flat frame stays feature-poor."""
         from orbslam2commentedbyxcm_tpu_torch.ops.frontend_kernel import level_table

@@ -79,15 +79,8 @@ def test_pyramid_kernel_bit_equal_to_twin(cuda_device, size, kind):
             assert torch.equal(got, ref), f"level {lvl} {name}: {int((got != ref).sum())} pixels differ"
 
 
-@pytest.mark.parametrize("size", [(640, 480), (752, 480), (1241, 376)], ids=lambda s: f"{s[0]}x{s[1]}")
-@pytest.mark.parametrize("kind", ["uint8", "scene"])
-@pytest.mark.parametrize("gain", [False, True], ids=["no_gain", "gain"])
-def test_pyramid_resize_kernel_bit_equal_to_twin(cuda_device, size, kind, gain):
-    """The exposure gain and all 8 levels in one resize launch (three with
-    the gain) against the twin, on the card and on the CPU: every level
-    bit-equal. Sizes: TUM, EuRoC and KITTI frames."""
-    from orbslam2commentedbyxcm_tpu_torch.ops.orb import ORBExtractor, _pyramid_plain
-
+def _pyramid_image(size, kind):
+    """A TUM / EuRoC / KITTI / 1920x1080 frame: rendered ("scene") or random uint8 values."""
     w, h = size
     if kind == "scene":
         from orbslam2commentedbyxcm_tpu_torch.utils.synth import BoxSequence, default_camera
@@ -95,16 +88,81 @@ def test_pyramid_resize_kernel_bit_equal_to_twin(cuda_device, size, kind, gain):
         img = BoxSequence(camera=default_camera(w, h), seed=12, trajectory="line").render(3)
     else:
         img = np.random.default_rng(2).integers(0, 256, (h, w))
-    img = torch.from_numpy(img.astype(np.float32))
+    return torch.from_numpy(img.astype(np.float32))
+
+
+def _assert_twin_levels(buf, img, table, target):
+    """Every level of `buf` bit-equal to the twin's on the card and on the CPU."""
+    from orbslam2commentedbyxcm_tpu_torch.ops.orb import _pyramid_plain
+
+    for ref in (_pyramid_plain(img.to(buf.device), table, target), _pyramid_plain(img, table, target)):
+        for lvl, (a, b) in enumerate(zip(fk.level_views(buf, table), fk.level_views(ref, table))):
+            assert torch.equal(a.cpu(), b.cpu()), f"level {lvl}: {int((a.cpu() != b.cpu()).sum())} pixels differ"
+
+
+@pytest.mark.parametrize("size", [(640, 480), (752, 480), (1241, 376)], ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("kind", ["uint8", "scene"])
+@pytest.mark.parametrize("gain", [False, True], ids=["no_gain", "gain"])
+def test_pyramid_resize_kernel_bit_equal_to_twin(cuda_device, size, kind, gain):
+    """The exposure gain and all 8 levels in one launch, gain on or off,
+    against the twin, on the card and on the CPU: every level bit-equal.
+    Sizes: TUM, EuRoC and KITTI frames."""
+    from orbslam2commentedbyxcm_tpu_torch.ops.orb import ORBExtractor
+
+    img = _pyramid_image(size, kind)
     ext = ORBExtractor(n_features=1000, normalize_exposure=gain)
-    target = ext.exposure_target_mad if gain else None
     before = pk.pyramid_resize.launches
     buf, table = ext._pyramid(img.to(cuda_device))
     torch.cuda.synchronize()
-    assert pk.pyramid_resize.launches == before + (3 if gain else 1)
-    for ref in (_pyramid_plain(img.to(cuda_device), table, target), _pyramid_plain(img, table, target)):
-        for lvl, (a, b) in enumerate(zip(fk.level_views(buf, table), fk.level_views(ref, table))):
-            assert torch.equal(a.cpu(), b.cpu()), f"level {lvl}: {int((a.cpu() != b.cpu()).sum())} pixels differ"
+    assert pk.pyramid_resize.launches == before + 1
+    _assert_twin_levels(buf, img, table, ext.exposure_target_mad if gain else None)
+
+
+@pytest.mark.parametrize("kind", ["uint8", "scene"])
+def test_pyramid_resize_kernel_multi_chunk_gain(cuda_device, kind):
+    """1920x1080 with the gain: 2025 partials, more than one chunk of 1024,
+    so the partials' sum takes its two-stage path; one launch, bit-equal."""
+    from orbslam2commentedbyxcm_tpu_torch.ops.orb import ORBExtractor
+
+    img = _pyramid_image((1920, 1080), kind)
+    assert -(-img.numel() // pk.CHUNK) > pk.CHUNK
+    ext = ORBExtractor(n_features=1000, normalize_exposure=True)
+    before = pk.pyramid_resize.launches
+    buf, table = ext._pyramid(img.to(cuda_device))
+    torch.cuda.synchronize()
+    assert pk.pyramid_resize.launches == before + 1
+    _assert_twin_levels(buf, img, table, ext.exposure_target_mad)
+
+
+@pytest.mark.parametrize("gain", [False, True], ids=["no_gain", "gain"])
+def test_pyramid_resize_repeats_itself(cuda_device, gain):
+    """20 calls back to back on one image give identical bits: no value
+    depends on which block got past a grid barrier first."""
+    from orbslam2commentedbyxcm_tpu_torch.ops.orb import ORBExtractor
+
+    img = _pyramid_image((640, 480), "scene").to(cuda_device)
+    ext = ORBExtractor(n_features=1000, normalize_exposure=gain)
+    first, table = ext._pyramid(img)
+    runs = [ext._pyramid(img)[0] for _ in range(20)]
+    torch.cuda.synchronize()
+    for i, buf in enumerate(runs):
+        for lvl, (a, b) in enumerate(zip(fk.level_views(buf, table), fk.level_views(first, table))):
+            assert torch.equal(a, b), f"call {i + 1} level {lvl}: {int((a != b).sum())} pixels differ"
+
+
+def test_pyramid_resize_on_a_side_stream(cuda_device):
+    """A call on a non-default stream launches there and gives the twin's
+    bits (the image is written on that stream just before)."""
+    from orbslam2commentedbyxcm_tpu_torch.ops.orb import ORBExtractor
+
+    img = _pyramid_image((752, 480), "scene")
+    ext = ORBExtractor(n_features=1000, normalize_exposure=True)
+    side = torch.cuda.Stream(cuda_device)
+    with torch.cuda.stream(side):
+        dev_img = img.to(cuda_device, non_blocking=True) * 1.0
+        buf, table = ext._pyramid(dev_img)
+    side.synchronize()
+    _assert_twin_levels(buf, img, table, ext.exposure_target_mad)
 
 
 def test_pyramid_resize_rejects_bad_inputs(cuda_device):
@@ -282,7 +340,7 @@ def test_system_on_card_matches_cpu_twins(cuda_device, features):
         assert np.abs(a - b).max() < 2e-3, (i, np.abs(a - b).max())
         np.testing.assert_array_equal(card.tracking.last_frame.depth, cpu.tracking.last_frame.depth)
     assert fk.fused_frontend_pyramid.launches - k1 == len(frames)  # one launch per extraction
-    assert pk.pyramid_resize.launches - k0 == 3 * len(frames)  # the gain's two sums and the resize
+    assert pk.pyramid_resize.launches - k0 == len(frames)  # one launch per extraction, the gain included
     assert poseopt_kernel.pose_optimization_fused.launches - k2 >= 2 * (len(frames) - 1)
     assert card.map.n_valid_points() == cpu.map.n_valid_points()
 

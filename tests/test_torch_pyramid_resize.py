@@ -1,7 +1,8 @@
 """The extractor's exposure gain and pyramid resize on the CPU: the tap
 tables, the float32 fused multiply-add the twin emulates, the fixed-order
-tree sums of the gain, the tile arithmetic of csrc/pyramid.cu, and the
-twin's distance from the JAX package's level images.
+tree sums of the gain, the persistent grid's sums and work list of
+csrc/pyramid.cu, and the twin's distance from the JAX package's level
+images.
 
 The twin (ops/orb.py `_pyramid_plain`) is the function the CUDA kernel
 computes bit for bit; tests/test_torch_kernels_cuda.py holds the kernel to
@@ -9,6 +10,7 @@ it on the card. Against the JAX package no order of the twin's can match
 XLA's dot and mean, so that comparison counts differing pixels.
 """
 
+import re
 from fractions import Fraction
 
 import jax
@@ -19,6 +21,7 @@ import torch
 
 from orbslam2commentedbyxcm_tpu.utils.synth import BoxSequence as JBoxSequence
 from orbslam2commentedbyxcm_tpu.utils.synth import default_camera as j_default_camera
+from orbslam2commentedbyxcm_tpu_torch import kernels
 from orbslam2commentedbyxcm_tpu_torch.ops import frontend_kernel as fk
 from orbslam2commentedbyxcm_tpu_torch.ops import pyramid_kernel as pk
 from orbslam2commentedbyxcm_tpu_torch.ops.orb import (
@@ -263,57 +266,179 @@ def test_pyramid_resize_on_cpu_runs_the_twin(rng):
         pk.pyramid_resize(img.to("meta"), table)
 
 
-def _kernel_on_cpu(img, table, pack, exposure_target):
-    """csrc/pyramid.cu's tile loop in torch, from the packed tables: for each
-    tile of RB x CW outputs, the vertical pass over the input columns its
-    window covers, then the horizontal pass from that window."""
-    starts, weights, rows, max_win = pack
-    starts, weights = starts.long(), weights.double()
-    rb, cw = 8, pk.TILE_COLS
+def _pair_rows(x):
+    """The adjacent-pair tree along the last axis (a power of two), float32."""
+    while x.shape[-1] > 1:
+        x = x[..., 0::2] + x[..., 1::2]
+    return x[..., 0]
+
+
+def _block_sum(chunk, threads):
+    """One block's subtree of 1024 values (zero-padded) as csrc/pyramid.cu
+    sums it: each thread its 1024 / threads consecutive values, then the
+    warp shuffles over 32 threads, then warp 0 over the warp sums."""
+    v = np.zeros(pk.CHUNK, np.float32)
+    v[: len(chunk)] = chunk
+    per_thread = _pair_rows(v.reshape(threads, -1))
+    per_warp = _pair_rows(per_thread.reshape(-1, 32))
+    return _pair_rows(np.pad(per_warp, (0, (1 << (len(per_warp) - 1).bit_length()) - len(per_warp))))
+
+
+def _grid_sum(x, grid, threads, copies=pk.GEOMETRY.copies):
+    """csrc/pyramid.cu's sum of the float32 values x on a persistent grid of
+    `grid` blocks: block b takes chunks b, b + grid, ... of 1024 values, one
+    partial each, written to every copy; each block then sums the partials
+    of copy b % copies in chunks of 1024 and, past one chunk, the chunk sums
+    the same way. Each chunk is taken once, and every block gets one total."""
+    n_part = -(-len(x) // pk.CHUNK)
+    part = np.zeros((copies, n_part), np.float32)
+    taken = np.zeros(n_part, np.int64)
+    for b in range(grid):
+        for c in range(b, n_part, grid):
+            part[:, c] = _block_sum(x[c * pk.CHUNK : (c + 1) * pk.CHUNK], threads)
+            taken[c] += 1
+    assert (taken == 1).all()
+    totals = set()
+    for b in range(min(grid, copies)):
+        mine = part[b % copies]
+        sums = np.array([_block_sum(mine[k : k + pk.CHUNK], threads) for k in range(0, n_part, pk.CHUNK)],
+                        np.float32)
+        totals.add(_bits(sums[0] if len(sums) == 1 else _block_sum(sums, threads)).item())
+    assert len(totals) == 1
+    return np.array(totals.pop(), np.uint32).view(np.float32)
+
+
+def _grid_gain(img, target, grid, threads):
+    """(mu, gain) as the kernel's phases compute them: float32 scalars."""
+    x = img.reshape(-1)
+    n = np.float32(x.size)
+    mu = np.float32(_grid_sum(x, grid, threads) / n)
+    mad = np.float32(_grid_sum(np.abs(x - mu), grid, threads) / n)
+    return mu, np.float32(min(max(np.float32(target) / max(mad, np.float32(1e-3)), np.float32(0.125)), np.float32(8)))
+
+
+# an H100's grid at 4 blocks per SM, and a grid smaller than the 640x480 image's 300 chunks
+GRIDS = (132 * 4, 7)
+
+
+@pytest.mark.parametrize("size", [(1241, 376), (1920, 1080)], ids=lambda s: f"{s[0]}x{s[1]}")
+def test_grid_sums_equal_tree_sum(rng, size):
+    """The persistent grid's chunk assignment and its chunked reduction of
+    the partials give `_tree_sum`'s bits for the image and for |x - mu|, at
+    KITTI's size (456 partials) and at 1920x1080 (2025 partials: two chunks
+    of them, then their chunk sums), for two grid sizes and both thread
+    counts the kernel may be built with."""
+    w, h = size
+    x = (rng.uniform(0, 255, h * w) * np.float32(1.37)).astype(np.float32)
+    n_part = -(-x.size // pk.CHUNK)
+    assert (n_part > pk.CHUNK) == (size == (1920, 1080))
+    total = _tree_sum(torch.from_numpy(x))
+    mu = total / torch.tensor(float(x.size))
+    dev = _tree_sum((torch.from_numpy(x) - mu).abs())
+    for grid in GRIDS:
+        for threads in (pk.GEOMETRY.threads, 128):
+            assert _bits(_grid_sum(x, grid, threads)) == _bits(total.numpy()), (grid, threads)
+            assert _bits(_grid_sum(np.abs(x - mu.numpy()), grid, threads)) == _bits(dev.numpy()), (grid, threads)
+
+
+def _kernel_on_cpu(img, table, plan, exposure_target, geometry, grid):
+    """csrc/pyramid.cu's work walked in torch, from the plan: the gain's
+    phases on the grid; block b's boxes b, b + grid, ...; each box staged
+    once with its halo (inside the kernel's buffer) and gained per value,
+    its row band's and column band's records decoded as the kernel reads
+    them; level 0 from the box's own values; per level > 0 the vertical
+    pass from the box over the rows whose taps start in it, then the
+    horizontal pass with the tap-major weights over its columns. Returns
+    the buffer and how often each value was written."""
+    bh, bw, halo_r, halo_c, n_rb, n_cb, v_words, h_words = plan.head
+    words = plan.records.numpy()
     h, w = img.shape
-    src = _exposure_gain(img, exposure_target) if exposure_target is not None else img
+    src = img
+    if exposure_target is not None:
+        mu, gain = (torch.tensor(v) for v in _grid_gain(img.numpy(), exposure_target, grid, geometry.threads))
+        src = (img - mu) * gain + mu  # each staged value gained once
     out = torch.zeros(table.total)
-    rows = np.asarray(list(rows)).reshape(-1, 9)
-    for off, hl, wl, tv, tw, vs, vw, hs, hw in rows.tolist():
-        dst = out[off : off + hl * wl].view(hl, wl)
-        if tv == 0:
-            dst.copy_(src)
-            continue
-        v_start, v_w = starts[vs : vs + hl], weights[vw : vw + hl * tv].view(hl, tv)
-        h_start, h_w = starts[hs : hs + wl], weights[hw : hw + wl * tw].view(wl, tw)
-        for r0 in range(0, hl, rb):
-            r = torch.arange(r0, min(r0 + rb, hl))
-            for j0 in range(0, wl, cw):
-                j = torch.arange(j0, min(j0 + cw, wl))
-                c_lo = int(h_start[j0])
-                win = int(h_start[j[-1]]) + tw - c_lo
-                assert win <= max_win
-                t = torch.zeros((len(r), win))
+    written = torch.zeros(table.total, dtype=torch.int64)
+
+    def put(off, wl, r, j, values):
+        for i, y in enumerate(r.tolist()):
+            out[off + y * wl + j] = values[i]
+            written[off + y * wl + j] += 1
+
+    for b in range(grid):
+        for item in range(b, n_rb * n_cb, grid):
+            rb, cb = divmod(item, n_cb)
+            r0, c0 = rb * bh, cb * bw
+            rows, cols = min(bh + halo_r, h - r0), min(bw + halo_c, w - c0)
+            assert rows <= geometry.buf_rows and cols <= geometry.buf_cols
+            box = src[r0 : r0 + rows, c0 : c0 + cols].double()
+            v_rec = words[rb * v_words : (rb + 1) * v_words]
+            h_rec = words[n_rb * v_words + cb * h_words : n_rb * v_words + (cb + 1) * h_words]
+            assert v_words + h_words <= geometry.rec_words
+            off0 = plan.levels[0][0]
+            own = torch.arange(r0, min(r0 + bh, h))
+            put(off0, w, own, torch.arange(c0, min(c0 + bw, w)), box[: len(own), : min(bw, w - c0)].float())
+            for off, hl, wl, tv, tw, v_at, rmax, h_at, cmax, t_at, t_cols in plan.levels[1:]:
+                v, hr = v_rec[v_at:], h_rec[h_at:]
+                nr, nj = int(v[1] - v[0]), int(hr[1] - hr[0])
+                if nr == 0 or nj == 0:
+                    continue
+                vs = torch.from_numpy(v[2 : 2 + nr].astype(np.int64))
+                vw = torch.from_numpy(v[2 + rmax : 2 + rmax + rmax * tv].view(np.float32).reshape(rmax, tv)).double()
+                hs = torch.from_numpy(hr[2 : 2 + nj].astype(np.int64))
+                hw = torch.from_numpy(hr[2 + cmax : 2 + cmax + tw * cmax].view(np.float32).reshape(tw, cmax)).double()
+                assert bool(((vs >= r0) & (vs < r0 + bh)).all() and ((hs >= c0) & (hs < c0 + bw)).all())
+                cw = int(hs[-1]) + tw - int(hs[0])
+                assert nr <= rmax and cw <= t_cols and nj <= cmax <= -(-geometry.box_cols // 32) * 32
+                t = torch.zeros((nr, cw))
                 for k in range(tv):
-                    x = src[v_start[r] + k][:, c_lo : c_lo + win].double()
-                    t = _fma_f32(v_w[r, k, None], x, t)
-                acc = torch.zeros((len(r), len(j)))
+                    t = _fma_f32(vw[:nr, k, None], box[vs - r0 + k, int(hs[0]) - c0 : int(hs[0]) - c0 + cw], t)
+                acc = torch.zeros((nr, nj))
                 for k in range(tw):
-                    acc = _fma_f32(h_w[j, k][None, :], t[:, h_start[j] - c_lo + k].double(), acc)
-                dst[r0 : r0 + len(r), j0 : j0 + len(j)] = acc
-    return out
+                    acc = _fma_f32(hw[k, :nj][None, :], t[:, hs - hs[0] + k].double(), acc)
+                put(off, wl, torch.arange(int(v[0]), int(v[1])), torch.arange(int(hr[0]), int(hr[1])), acc)
+    return out, written
 
 
+@pytest.mark.parametrize("geometry", [pk.GEOMETRY, pk.Geometry(128, 8, 32, 14, 48, 1024, 512, 32, 1)],
+                         ids=["shipped", "small"])
 @pytest.mark.parametrize("size", [(160, 120), (179, 134)], ids=lambda s: f"{s[0]}x{s[1]}")
-def test_kernel_tiling_equals_twin(rng, size):
-    """The packed tables and the kernel's tile windows, walked on the CPU,
-    give the twin's pyramid bit for bit, gain on and off (179x134: ragged
-    tiles at every level)."""
+def test_kernel_tiling_equals_twin(rng, size, geometry):
+    """The kernel's plan and work list, walked on the CPU, give the twin's
+    pyramid bit for bit, gain on and off, and write every value of every
+    level exactly once (179x134: ragged boxes at every level; the small
+    geometry shrinks the boxes until records and vertical passes fit)."""
     w, h = size
     img = torch.from_numpy(rng.integers(0, 256, (h, w)).astype(np.float32))
     table = fk.level_table(_shapes(h, w))
-    pack = pk._tap_pack(h, w, table.shapes, table.offsets, "cpu")
-    assert len(pack[2]) == 9 * len(table.shapes)
+    plan = pk._plan(h, w, table.shapes, table.offsets, "cpu", geometry)
+    assert len(plan.c_table) == pk.HEAD + 11 * len(table.shapes)
+    bh, bw = plan.head[:2]
+    assert 1 <= bh <= geometry.box_rows and 1 <= bw <= geometry.box_cols
+    # the levels' vertical passes lie side by side in the box's buffer, one (level, row) item each
+    ends = [t_at + rmax * t_cols for *_, rmax, _, _, t_at, t_cols in plan.levels[1:]]
+    assert [row[9] for row in plan.levels[2:]] == ends[:-1] and ends[-1] <= geometry.t_words
+    assert sum(row[6] for row in plan.levels[1:]) <= geometry.items
+    if geometry != pk.GEOMETRY:
+        assert (bh, bw) < (geometry.box_rows, geometry.box_cols), plan.head
     for target in (None, 18.0):
-        got = _kernel_on_cpu(img, table, pack, target)
-        ref = _pyramid_plain(img, table, target)
-        for lvl, (a, b) in enumerate(zip(fk.level_views(got, table), fk.level_views(ref, table))):
-            assert torch.equal(a, b), (lvl, target)
+        for grid in GRIDS:
+            got, written = _kernel_on_cpu(img, table, plan, target, geometry, grid)
+            ref = _pyramid_plain(img, table, target)
+            for lvl, (a, b, c) in enumerate(zip(fk.level_views(got, table), fk.level_views(ref, table),
+                                                fk.level_views(written, table))):
+                assert torch.equal(a, b), (lvl, target, grid)
+                assert bool((c == 1).all()), (lvl, target, grid)
+
+
+def test_geometry_mirrors_the_kernel_source():
+    """`pyramid_kernel.GEOMETRY` (what the CPU plans with) is the shipped
+    kernel's compiled default, read from csrc/pyramid.cu."""
+    src = (kernels.CSRC / "pyramid.cu").read_text()
+    defaults = dict(re.findall(r"#define PYR_(\w+) (\d+)", src))
+    defaults["ITEMS"] = re.search(r"constexpr int ITEMS = (\d+);", src).group(1)
+    names = ("THREADS", "BOX_ROWS", "BOX_COLS", "BUF_ROWS", "BUF_COLS", "REC_WORDS", "T_WORDS", "ITEMS", "PART_COPIES")
+    assert pk.Geometry(*(int(defaults[k]) for k in names)) == pk.GEOMETRY
 
 
 def test_extractor_pyramid_is_the_twin():

@@ -1,9 +1,10 @@
-"""Where the time goes inside the port's two CUDA kernels, in SM clock cycles,
+"""Where the time goes inside the port's CUDA kernels, in SM clock cycles,
 on one CUDA GPU.
 
     python3 tools/probe_kernels.py    # from the repository root
 
-Copies csrc/frontend.cu and csrc/poseopt.cu into build/probe/, inserts
+Copies csrc/frontend.cu, csrc/poseopt.cu and csrc/pyramid.cu into
+build/probe/, inserts
 clock64() reads at fixed places of their code (it stops if a place is no
 longer found), builds each copy with the kernels' nvcc flags into a library
 of its own (all builds at once) and runs it:
@@ -15,7 +16,12 @@ of its own (all builds at once) and runs it:
   to 128 edges, a cluster of 8 above) and on one block (-DK2_CLUSTER=1):
   cycles per evaluation in the edge loop and in the cross-warp /
   cross-block sum, per LM iteration in the 6x6 solve and the SE3 exp, and
-  in the whole launch, as block 0's thread 0 sees them.
+  in the whole launch, as block 0's thread 0 sees them;
+- the pyramid kernel, one call on a 640x480 frame with the gain on and
+  off: mean cycles per block (its first box) in the gain's first sum, in
+  the two grid barriers with the second sum and the gain, waiting for the
+  staged box, the spans, the vertical phase with level 0, the horizontal
+  phase, and the whole block, as each block's thread 0 sees them.
 
 The reads cost a few cycles each and serialise nothing else; the probed
 kernels are not the ones the port runs.
@@ -38,6 +44,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 from orbslam2commentedbyxcm_tpu_torch import kernels  # noqa: E402
 from orbslam2commentedbyxcm_tpu_torch.ops import frontend_kernel as fk  # noqa: E402
+from orbslam2commentedbyxcm_tpu_torch.ops import pyramid_kernel as pyr  # noqa: E402
 from orbslam2commentedbyxcm_tpu_torch.ops.orb import ORBExtractor  # noqa: E402
 from orbslam2commentedbyxcm_tpu_torch.utils.synth import BoxSequence, default_camera  # noqa: E402
 
@@ -88,6 +95,27 @@ K2_MARKS = [
     ("  if constexpr (CL > 1) cg::this_cluster().sync();  // no block leaves while a push to it is in flight\n}\n",
      "  if constexpr (CL > 1) cg::this_cluster().sync();  // no block leaves while a push to it is in flight\n"
      "  if (tid == 0 && blockIdx.x == 0) g_dbg[4] += clock64() - k0;\n}\n"),
+]
+
+PYR_MARKS = [
+    ("  const bool gained = part != nullptr;\n\n",
+     "  const bool gained = part != nullptr;\n  const long long p0 = clock64();\n  long long p1 = p0, p2 = p0;\n"),
+    ("    }\n    grid.sync();\n    if (item < n_boxes) {",
+     "    }\n    p1 = clock64();\n    grid.sync();\n    if (item < n_boxes) {"),
+    ("    g.gain = fminf(fmaxf(__fdiv_rn(target, fmaxf(mad, 1e-3f)), 0.125f), 8.0f);\n",
+     "    g.gain = fminf(fmaxf(__fdiv_rn(target, fmaxf(mad, 1e-3f)), 0.125f), 8.0f);\n    p2 = clock64();\n"),
+    ("    if (gained) gain_box(box, s_box, g);\n    __syncthreads();\n",
+     "    if (gained) gain_box(box, s_box, g);\n    __syncthreads();\n    const long long p3 = clock64();\n"),
+    ("    __syncthreads();\n    // Every level's vertical pass",
+     "    __syncthreads();\n    const long long p4 = clock64();\n    // Every level's vertical pass"),
+    ("    write_level0(s_lv[0], box, s_box, out);\n    __syncthreads();\n",
+     "    write_level0(s_lv[0], box, s_box, out);\n    const long long p5 = clock64();\n    __syncthreads();\n"),
+    ("    __syncthreads();  // the box and its records are read before the next box is staged\n",
+     "    if (threadIdx.x == 0 && item == static_cast<int>(blockIdx.x)) {\n"
+     "      const long long p6 = clock64(), ps[7] = {p0, p1, p2, p3, p4, p5, p6};\n"
+     "      for (int j = 0; j < 6; ++j) atomicAdd(&g_dbg[j], (unsigned long long)(ps[j + 1] - ps[j]));\n"
+     "      atomicAdd(&g_dbg[6], (unsigned long long)(p6 - p0));\n      atomicAdd(&g_dbg[7], 1ull);\n    }\n"
+     "    __syncthreads();  // the box and its records are read before the next box is staged\n"),
 ]
 
 
@@ -149,6 +177,23 @@ def probe_k2(libs):
                   f"{v[0] / evals:.0f} / {v[1] / evals:.0f}; {v[2] / iters:.0f} / {v[3] / iters:.0f}; {v[4]}")
 
 
+def probe_pyramid(lib):
+    seq = BoxSequence(camera=default_camera(), seed=5, n_frames=100, turns=0.35)
+    img = torch.from_numpy(seq.render(0)).to(DEV)
+    table = ORBExtractor()._pyramid(img)[1]
+    saved = kernels._lib
+    kernels._lib = lib  # the wrapper plans with the probed library's geometry
+    try:
+        print("pyramid 640x480, mean cycles per block (its first box): first sum / barriers + second sum + gain / "
+              "waiting for the box / spans / vertical phase + level 0 / horizontal phase; whole block")
+        for target in (ORBExtractor().exposure_target_mad, None):
+            v = run(lib, lambda: (pyr.pyramid_resize(img, table, target), 0)[1])
+            print(f"  gain {'on' if target else 'off'} ({v[7]} blocks): "
+                  + " / ".join(f"{x / v[7]:.0f}" for x in v[:6]) + f"; {v[6] / v[7]:.0f}")
+    finally:
+        kernels._lib = saved
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA GPU")
@@ -159,9 +204,11 @@ def main():
         k1 = pool.submit(build, "frontend.cu", K1_MARKS, "k1")
         k2 = pool.submit(build, "poseopt.cu", K2_MARKS, "k2")
         k2_one = pool.submit(build, "poseopt.cu", K2_MARKS, "k2_one_block", ["-DK2_CLUSTER=1"])
-        k1, k2, k2_one = k1.result(), k2.result(), k2_one.result()
+        pyramid = pool.submit(build, "pyramid.cu", PYR_MARKS, "pyramid")
+        k1, k2, k2_one, pyramid = k1.result(), k2.result(), k2_one.result(), pyramid.result()
     probe_k1(k1)
     probe_k2({"as shipped": k2, "one block": k2_one})
+    probe_pyramid(pyramid)
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""Device and call times of the port's two CUDA kernels over their design
+"""Device and call times of the port's CUDA kernels over their design
 choices, on one CUDA GPU.
 
     python3 tools/profile_kernels.py    # from the repository root
@@ -14,7 +14,11 @@ once), and times it through the port's own wrappers:
   layout), for K1 and for the resize matmuls that write the levels;
 - K2 (csrc/poseopt.cu): threads per block (K2_THREADS) x blocks per cluster
   (K2_CLUSTER) at N = 1000 and 2000 edges (stereo 0.5), and at N = 32 one
-  block against a cluster of 8 (K2_ONE_BLOCK_EDGES=0).
+  block against a cluster of 8 (K2_ONE_BLOCK_EDGES=0);
+- the pyramid kernel (csrc/pyramid.cu): the image box a block stages
+  (PYR_BOX_ROWS x PYR_BOX_COLS, with its buffer PYR_BUF_*) and threads per
+  block (PYR_THREADS), one call per extraction at the TUM1, EuRoC and KITTI
+  sizes, gain on and off.
 
 Device time is the kernel's own time under torch.profiler; call time is the
 CUDA-event round trip of the Python wrapper, what the main path pays.
@@ -39,7 +43,8 @@ import chip_smoke as cs  # noqa: E402
 from orbslam2commentedbyxcm_tpu_torch import kernels  # noqa: E402
 from orbslam2commentedbyxcm_tpu_torch.ops import frontend_kernel as fk  # noqa: E402
 from orbslam2commentedbyxcm_tpu_torch.ops import poseopt_kernel as pk  # noqa: E402
-from orbslam2commentedbyxcm_tpu_torch.ops.orb import ORBExtractor  # noqa: E402
+from orbslam2commentedbyxcm_tpu_torch.ops import pyramid_kernel as pyr  # noqa: E402
+from orbslam2commentedbyxcm_tpu_torch.ops.orb import ORBExtractor, _resize_weights  # noqa: E402
 from orbslam2commentedbyxcm_tpu_torch.utils.synth import BoxSequence, default_camera  # noqa: E402
 
 OUT = ROOT / "build" / "profile"
@@ -48,6 +53,20 @@ CAM = (cs.FX, cs.FY, cs.CX, cs.CY, cs.BF)
 SIZES = [(640, 480), (752, 480), (1241, 376)]
 TILES = [(32, 16), (64, 16), (64, 32), (128, 16)]
 K2_SHAPES = [(128, 1), (128, 2), (128, 4), (128, 8), (256, 1), (256, 2), (256, 4), (256, 8)]
+# pyramid variants, named by the image values a box stages (its own and a
+# halo of 7: taps up to 8 at 8 levels of scale 1.2): name -> defines, the
+# shipped one first with none
+PYR_VARIANTS = {
+    "buf24x64": [],
+    "buf16x64": ["-DPYR_BOX_ROWS=8", "-DPYR_BUF_ROWS=16"],
+    "buf40x64": ["-DPYR_BOX_ROWS=32", "-DPYR_BUF_ROWS=40", "-DPYR_T_WORDS=9216"],
+    "buf24x32": ["-DPYR_BOX_COLS=32", "-DPYR_BUF_COLS=32"],
+    "buf24x128": ["-DPYR_BOX_COLS=128", "-DPYR_BUF_COLS=128", "-DPYR_REC_WORDS=4096", "-DPYR_T_WORDS=9216"],
+    "threads128": ["-DPYR_THREADS=128"],
+    "threads512": ["-DPYR_THREADS=512"],
+    "copies1": ["-DPYR_PART_COPIES=1"],
+    "copies32": ["-DPYR_PART_COPIES=32"],
+}
 
 
 def build_variants():
@@ -56,6 +75,7 @@ def build_variants():
     jobs.update({f"k2_{nt}x{cl}": ("poseopt.cu", [f"-DK2_THREADS={nt}", f"-DK2_CLUSTER={cl}"])
                  for nt, cl in K2_SHAPES})
     jobs["k2_128x8_always"] = ("poseopt.cu", ["-DK2_ONE_BLOCK_EDGES=0"])
+    jobs.update({f"pyr_{name}": ("pyramid.cu", defines) for name, defines in PYR_VARIANTS.items()})
     with ThreadPoolExecutor(max_workers=8) as pool:
         builds = [pool.submit(kernels.compile_library, OUT / f"{name}.so", [kernels.CSRC / src], defines)
                   for name, (src, defines) in jobs.items()]
@@ -113,16 +133,18 @@ def packed(table):
     return fk.LevelTable(table.shapes, tuple(offsets), off, (ctypes.c_int * len(rows))(*rows))
 
 
-def write_levels(ext, img, table, buf):
-    """The extractor's level images written into `buf` laid out by `table`
-    (ORBExtractor._pyramid with its buffer given)."""
+def write_levels(img, table, buf):
+    """The level images written into `buf` laid out by `table`: the copy and
+    the 14 dense resize products `wh @ img @ ww.T` the extractor ran before
+    the pyramid kernel."""
     h, w = img.shape
     for lvl, view in enumerate(fk.level_views(buf, table)):
         if lvl == 0:
             view.copy_(img)
         else:
             hl, wl = view.shape
-            torch.matmul(ext._resize_matrix(h, hl, DEV) @ img, ext._resize_matrix(w, wl, DEV).T, out=view)
+            wh, ww = (torch.from_numpy(_resize_weights(n, m)).to(DEV) for n, m in ((h, hl), (w, wl)))
+            torch.matmul(wh @ img, ww.T, out=view)
 
 
 def compare_layouts():
@@ -136,9 +158,9 @@ def compare_layouts():
     for name in ("packed", "aligned", "aligned", "packed"):
         table = tables[name]
         buf = torch.empty(table.total, device=DEV)
-        write_levels(ext, img, table, buf)
+        write_levels(img, table, buf)
         k1 = times(lambda: fk.fused_frontend_pyramid(buf, table, 20.0, 7.0), "frontend_kernel")
-        levels = times(lambda: write_levels(ext, img, table, buf), "")
+        levels = times(lambda: write_levels(img, table, buf), "")
         print(f"  {name}: K1 {k1[0]:.4f} / {k1[1]:.4f}; levels {levels[0]:.4f} / {levels[1]:.4f}")
 
 
@@ -164,6 +186,25 @@ def sweep_blocks(libs):
     print("  N=32: " + "; ".join(row))
 
 
+def sweep_pyramid(libs):
+    print("pyramid kernel, one call per extraction (gain on / off), by variant: device ms (torch.profiler) / "
+          "call ms (CUDA events); the box plan (rows, columns a box owns, row and column bands)")
+    target = ORBExtractor().exposure_target_mad
+    for w, h in SIZES:
+        img = frame(w, h)
+        table = ORBExtractor(n_features=1000)._pyramid(img)[1]
+        row = []
+        for name in PYR_VARIANTS:
+            lib = libs[f"pyr_{name}"]
+            with using(lib):
+                on = times(lambda: pyr.pyramid_resize(img, table, target), "pyramid_fused")
+                off = times(lambda: pyr.pyramid_resize(img, table), "pyramid_fused")
+                head = pyr._plan(h, w, table.shapes, table.offsets, str(DEV), pyr._geometry(lib)).head
+            row.append(f"{name} {on[0]:.4f} / {on[1]:.4f}, off {off[0]:.4f} / {off[1]:.4f} "
+                       f"({head[0]}x{head[1]}, {head[4]}x{head[5]})")
+        print(f"  {w}x{h}: " + "; ".join(row))
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA GPU")
@@ -175,6 +216,7 @@ def main():
     sweep_tiles(libs)
     compare_layouts()
     sweep_blocks(libs)
+    sweep_pyramid(libs)
 
 
 if __name__ == "__main__":
