@@ -25,10 +25,17 @@ twins. Phases, each printing one line:
               (torch.profiler), call time, twin time, bound, and the device
               time of the 14 torch.matmul calls it replaced; then the whole
               extractor on the card against the
-              same extractor on the CPU, each on its own: keypoints (valid,
-              uv, level, response) bit-equal, angles within 1e-5 at 640x480
-              (printed at the dataset sizes), descriptors differing on at most
-              5 keypoints by at most 4 bits
+              same extractor on the CPU, each on its own: every field (uv,
+              response, angle, level, desc, valid) bit-equal on 5 frames
+     select   the selection and describe kernels vs their twins on the card
+              (every slot bit-equal) at 640x480, 752x480, 1241x376,
+              1920x1080 and 3840x2160 (whose levels 0 and 1 are ranked by
+              count) with 1000, 1200, 2000 and 4000 features, and on
+              noise, a tiled texture and a flat image; one launch each per
+              call; device time (torch.profiler), call time, twin time and
+              bound (what this extraction's maps and keypoints need read)
+              per 640x480 extraction; a whole extraction launches 4
+              kernels (pyramid, K1, select, describe: torch.profiler)
      K1       one launch of the fused frontend over the 8-level pyramid of a
               640x480 frame vs the twin, level by level (bit-equal), and each
               level alone; device time (torch.profiler), call time (CUDA
@@ -43,12 +50,14 @@ twins. Phases, each printing one line:
   5. flagship entry.flagship(device="cuda"): kernels vs twins, compared
   6. tracking BoxSequence at 640x480: frames 1-10 tracked by fused_track_step
               against a 4096-point pack built from frame 0's depth; launch
-              counters (one K1 per extraction), pose error, per-frame time
+              counters (one pyramid, K1, select and describe launch per
+              extraction), pose error, per-frame time
   7. rgbd     System(Sensor.RGBD, device="cuda") on 60 frames of the same
               sequence: tracked frames, keyframes, local BAs, ATE against
               the JAX package's, per-frame times, launches, peak memory
   8. stereo   System(Sensor.STEREO) on 30 rounded stereo pairs: the same
-              checks, 2 K1 launches per frame (left + right extraction)
+              checks, 2 K1, select and describe launches per frame (left +
+              right extraction)
   9. mono     System(Sensor.MONOCULAR) on 60 frames of SyntheticSequence
               ("sideways"): initialization frame, tracked frames, Sim3 ATE
               against the JAX package's, per-frame times, launches per frame
@@ -117,8 +126,8 @@ twins. Phases, each printing one line:
               seconds, the Python parser's once, bit-equal to it there and
               at L 4
  18. kernels  one JSON line: per kernel, launches summed over phases 6-17
-              (the pyramid kernel's one per extraction, as K1's), error,
-              times, bound
+              (the pyramid, select and describe kernels' one per extraction,
+              as K1's), error, times, bound
 
 The last line is {"ok": true, "device": {...}}. Any failed phase exits non-zero
 without that line. Without a CUDA device it exits 2 and prints no result.
@@ -128,6 +137,7 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import statistics
@@ -229,8 +239,31 @@ def _cuda_ms(fn, reps: int) -> float:
 # a few ms early: on an H100 with torch 2.11 (CUDA 12.8), about one session in
 # a hundred without a margin lost its first kernels (1 to all 50 of 50), the
 # kept ones stamped before the calls that launched them; with the margin none
-# did (tools/profiler_margin.py).
+# did (tools/profiler_margin.py). Sessions that recorded CUDA activity
+# alone still lost one launch now and then (1 of 50 select_fused or
+# describe_fused launches, in chip_smoke runs on an H100 with torch 2.11).
+# So a session records CPU activity too, brackets the measured calls with a
+# short spin kernel at each end (not counted: a launch lost at either edge
+# of the window is one of these), and a session that saw too few launches
+# is profiled again, PROFILE_TRIES sessions at most; the check holds the
+# last.
 PROFILE_MARGIN_S = 0.02
+PROFILE_TRIES = 3
+
+
+@functools.lru_cache(maxsize=1)
+def _sentinel_keys() -> frozenset:
+    """The device events of the bracketing kernel, torch.cuda._sleep."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    keys = frozenset(e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    _check(len(keys) == 1, f"torch.cuda._sleep launched device events {sorted(keys)}, want one kernel")
+    return keys
 
 
 def _device_ms(fn, reps: int, kernel, per_call: int | None = None) -> tuple[float, int]:
@@ -239,23 +272,34 @@ def _device_ms(fn, reps: int, kernel, per_call: int | None = None) -> tuple[floa
     kernel), summed by torch.profiler over `reps` calls after one warm-up.
     Only events on the device count (not the runtime calls that launched
     them). With `per_call`, the profiler must have seen exactly `per_call`
-    such launches per call."""
+    such launches per call (a session that saw fewer is profiled again)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        time.sleep(PROFILE_MARGIN_S)
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        time.sleep(PROFILE_MARGIN_S)
     names = (kernel,) if isinstance(kernel, str) else kernel
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and any(k in e.key for k in names)]
-    n = sum(e.count for e in events)
-    us = sum(getattr(e, "self_device_time_total", 0) for e in events)
+    sentinel = _sentinel_keys()
+    for session in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_MARGIN_S)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_MARGIN_S)
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                  and e.key not in sentinel and any(k in e.key for k in names)]
+        n = sum(e.count for e in events)
+        us = sum(getattr(e, "self_device_time_total", 0) for e in events)
+        if per_call is None or n == per_call * reps or session == PROFILE_TRIES:
+            break
+        print(f"[profiler] session {session} saw {n} {kernel} launches for {reps} calls of {per_call}: "
+              "profiling again", flush=True)
     _check(n > 0 and us > 0, f"torch.profiler recorded no device time for {kernel}")
     _check(per_call is None or n == per_call * reps,
            f"torch.profiler saw {n} {kernel} launches for {reps} calls of {per_call}")
@@ -433,14 +477,8 @@ def phase_k1(torch, dev):
 PYRAMID_OPS_PER_TAP, PYRAMID_GAIN_OPS_PER_PX = 2, 7
 # the extractor held card against CPU in phase 3: TUM1 frames (1000
 # features) as in tests/test_torch_kernels_cuda.py, then one frame at each of
-# phase 15's EuRoC and KITTI sizes with their settings' feature counts. The
-# angles differ by ulps: the orientation moments (a float32 matvec) sum in
-# another order on each device and atan2 is libm on the CPU, libdevice on the
-# card. The gap read 2.3e-6 to 4.3e-6 rad on the 640x480 and EuRoC frames
-# and 1.65e-5 on one keypoint of the KITTI frame (H100 80GB HBM3, 700.00 W),
-# so one bound of 2e-5 holds all five frames.
+# phase 15's EuRoC and KITTI sizes with their settings' feature counts
 EXTRACT_FRAMES_640 = (0, 20, 40)
-ANGLE_TOL = 2e-5
 EXTRACT_DATASET_FEATURES = {(752, 480): 1200, (1241, 376): 2000}
 
 
@@ -453,17 +491,6 @@ def pyramid_ops(h: int, w: int, table, gain: bool) -> int:
     for hl, wl in table.shapes[1:]:
         taps += int((_resize_weights(h, hl) != 0).sum()) * w + int((_resize_weights(w, wl) != 0).sum()) * hl
     return PYRAMID_OPS_PER_TAP * taps + (PYRAMID_GAIN_OPS_PER_PX * h * w if gain else 0)
-
-
-def _feature_gaps(torch, card, cpu):
-    """(keypoints in both, largest angle gap, descriptors that differ, most
-    bits one differs by) over the valid slots of two FrameFeatures with the
-    same keypoints."""
-    v = cpu.valid
-    ang = float((card.angle.cpu()[v] - cpu.angle[v]).abs().max())
-    x = (card.desc.cpu()[v] ^ cpu.desc[v]).view(torch.uint8)
-    bits = sum(((x >> s) & 1).int() for s in range(8)).sum(1)
-    return int(v.sum()), ang, int((bits > 0).sum()), int(bits.max())
 
 
 def phase_pyramid(torch, dev):
@@ -532,22 +559,184 @@ def phase_pyramid(torch, dev):
         frame = BoxSequence(camera=default_camera(w, h), seed=5, n_frames=100, turns=0.35).render(i)
         ext = ORBExtractor(n_features=n_features, normalize_exposure=True)
         card, cpu = ext(torch.from_numpy(frame).to(dev)), ext(torch.from_numpy(frame))
-        for f in ("valid", "uv", "level", "response"):
-            _check(torch.equal(getattr(card, f).cpu(), getattr(cpu, f)),
-                   f"extractor {w}x{h} frame {i}: {f} differs between the card and the CPU")
-        n, ang, n_desc, max_bits = _feature_gaps(torch, card, cpu)
+        for f in card._fields:
+            a, b = getattr(card, f).cpu(), getattr(cpu, f)
+            _check(torch.equal(a, b), f"extractor {w}x{h} frame {i}: {f} differs between the card and the CPU "
+                   f"in {int((a != b).reshape(len(a), -1).any(1).sum())} slots")
+        n = int(cpu.valid.sum())
         _check(n > 0.5 * n_features, f"extractor {w}x{h} frame {i}: {n} keypoints")
-        _check(n_desc <= 5 and max_bits <= 4, f"extractor {w}x{h} frame {i}: {n_desc} descriptors differ, "
-               f"by up to {max_bits} bits")
-        _check(ang <= ANGLE_TOL, f"extractor {w}x{h} frame {i}: angle gap {ang:.3g} over {ANGLE_TOL}")
-        rows.append(f"{w}x{h} frame {i} ({n_features}): {n} keypoints, angle gap {ang:.3g}, "
-                    f"{n_desc} descriptors differ (max {max_bits} bits)")
-    print("[3 extractor] card vs CPU, gain on, each extracting on its own: valid, uv, level and response "
-          f"bit-equal; angle gap within {ANGLE_TOL} | " + "; ".join(rows))
+        rows.append(f"{w}x{h} frame {i} ({n_features}): {n} keypoints")
+    print("[3 extractor] card vs CPU, gain on, each extracting on its own: every field (uv, response, angle, "
+          "level, desc, valid) of every slot bit-equal | " + "; ".join(rows))
     return {"max_abs_err": 0.0, "ms": device_ms, "device_ms": device_ms, "call_ms": call_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
             "library_call_ms": library_call_ms, "gain_off_device_ms": resize_ms,
             "gain_off_call_ms": resize_call_ms, "gain_off_bound_ms": resize_bound_ms, "kernel_launches_per_call": 1}
+
+
+# the sizes and feature counts the select and describe kernels are held to
+# their twins at in phase 3: TUM1, EuRoC, KITTI, 1080p and 4K frames (4K's
+# levels 0 and 1 are ranked by count, the others sorted); the feature counts
+# of TUM1, EuRoC and KITTI (2000 is also the mono initializer's doubled
+# 1000) and of KITTI's doubled initializer
+SELECT_SIZES = ((640, 480), (752, 480), (1241, 376), (1920, 1080), (3840, 2160))
+SELECT_FEATURES = (1000, 1200, 2000, 4000)
+# operations, counted from csrc/select.cu: per value of a cell, per map
+# read and pass, a max and a compare; a ranking of n keys needs n log2 n
+# compares of (key, index); from csrc/describe.cu per keypoint: 2 x 961
+# moment products and 2 x 1023 tree sums, ~25 for atan2, sqrt and the
+# divisions, 8 per rotated endpoint (4 products, 2 sums, 2 roundings) x 512,
+# 256 compares
+SELECT_OPS_PER_VALUE, DESCRIBE_OPS_PER_KEYPOINT = 2, 3968 + 25 + 8 * 512 + 256
+
+
+def select_bound(table, maps, budgets, cell_size: int, k: int) -> tuple[float, str]:
+    """Bound of one selection on these maps: nms_hi read once inside each
+    level's margin (the kernel zeroes the margin), nms_lo only in the cells
+    with no nms_hi score (the 20 -> 7 fallback), (px, py, response, valid)
+    written once per slot."""
+    import torch
+
+    from orbslam2commentedbyxcm_tpu_torch.ops.frontend_kernel import level_views
+    from orbslam2commentedbyxcm_tpu_torch.ops.orb import MARGIN
+
+    nbytes, ops, m, cs = 13 * sum(budgets), 0, MARGIN, cell_size
+    for (h, w), hi, budget in zip(table.shapes, level_views(maps[1], table), budgets):
+        if not budget:
+            continue
+        cy, cx = -(-h // cs), -(-w // cs)
+        inner = torch.zeros((cy * cs, cx * cs), dtype=torch.bool, device=maps.device)
+        inner[m : h - m, m : w - m] = True
+        scored = torch.zeros_like(inner)
+        scored[:h, :w] = hi > 0
+        cells = lambda x: x.reshape(cy, cs, cx, cs).sum((1, 3))  # noqa: E731
+        n_inner, lo = cells(inner), cells(scored & inner) == 0
+        nbytes += 4 * int(n_inner.sum() + n_inner[lo].sum())
+        ops += SELECT_OPS_PER_VALUE * k * cs * cs * (cy * cx + int(lo.sum()))
+        n = cy * cx * k
+        ops += n * max(1, (n - 1).bit_length())
+    return _bound(ops, nbytes)
+
+
+def describe_bound(table, blurred, pxy, budgets) -> tuple[float, str]:
+    """Bound of one describe call on these keypoints: the union of the
+    pixels their 48 x 48 patches cover (the patches overlap) read once,
+    (px, py) read and uv, angle, level and 8 words written once a slot."""
+    import torch
+
+    from orbslam2commentedbyxcm_tpu_torch.ops.descriptors import reflect
+
+    dev = blurred.device
+    slot_level = torch.repeat_interleave(torch.arange(len(budgets), device=dev),
+                                         torch.tensor(list(budgets), device=dev))
+    offs = torch.tensor(table.offsets, dtype=torch.int64, device=dev)[slot_level]
+    hs = torch.tensor([h for h, _ in table.shapes], dtype=torch.int64, device=dev)[slot_level]
+    ws = torch.tensor([w for _, w in table.shapes], dtype=torch.int64, device=dev)[slot_level]
+    ar = torch.arange(-24, 24, device=dev)
+    rows = reflect(pxy[1].long()[:, None] + ar, hs[:, None])
+    cols = reflect(pxy[0].long()[:, None] + ar, ws[:, None])
+    covered = torch.zeros(table.total, dtype=torch.bool, device=dev)
+    covered[(offs[:, None, None] + rows[:, :, None] * ws[:, None, None] + cols[:, None, :]).reshape(-1)] = True
+    n_slots = pxy.shape[1]
+    return _bound(DESCRIBE_OPS_PER_KEYPOINT * n_slots, 4 * int(covered.sum()) + n_slots * (8 + 48))
+
+
+def _select_describe_case(torch, ext, table, maps, tag: str):
+    """One select and one describe launch against their twins on the card:
+    every slot bit-equal. Returns the select outputs."""
+    from orbslam2commentedbyxcm_tpu_torch.ops import describe_kernel as dk
+    from orbslam2commentedbyxcm_tpu_torch.ops import select_kernel as sk
+    from orbslam2commentedbyxcm_tpu_torch.ops.descriptors import describe_plain
+    from orbslam2commentedbyxcm_tpu_torch.ops.orb import select_plain
+
+    before = (sk.select_keypoints.launches, dk.describe_keypoints.launches)
+    sel = sk.select_keypoints(maps, table, ext.budgets, ext.cell_size, ext.per_cell_k)
+    tables = ext._descriptor_tables(maps.device)
+    desc = dk.describe_keypoints(maps[0], table, sel[0], ext.budgets, ext.scales, tables)
+    _check((sk.select_keypoints.launches - before[0], dk.describe_keypoints.launches - before[1]) == (1, 1),
+           f"select / describe at {tag}: not one launch each per call")
+    for name, a, b in zip(("pxy", "response", "valid"), sel,
+                          select_plain(maps, table, ext.budgets, ext.cell_size, ext.per_cell_k)):
+        _check(torch.equal(a, b), f"select {name} differs from the twin at {tag}: "
+               f"{int((a != b).reshape(-1, a.shape[-1]).any(0).sum())} slots")
+    for name, a, b in zip(("uv", "angle", "level", "desc"), desc,
+                          describe_plain(maps[0], table, sel[0], ext.budgets, ext.scales, tables)):
+        _check(torch.equal(a, b), f"describe {name} differs from the twin at {tag}: "
+               f"{int((a != b).reshape(len(a), -1).any(1).sum())} slots")
+    return sel
+
+
+def phase_select_describe(torch, dev):
+    """The select and describe kernels vs their twins on the card at
+    SELECT_SIZES x SELECT_FEATURES and on three hard images, then their
+    times per 640x480 extraction (1000 features, gain on: the main path's)."""
+    from orbslam2commentedbyxcm_tpu_torch.ops import describe_kernel as dk
+    from orbslam2commentedbyxcm_tpu_torch.ops import frontend_kernel as fk
+    from orbslam2commentedbyxcm_tpu_torch.ops import select_kernel as sk
+    from orbslam2commentedbyxcm_tpu_torch.ops.descriptors import describe_plain
+    from orbslam2commentedbyxcm_tpu_torch.ops.orb import ORBExtractor, select_plain
+    from orbslam2commentedbyxcm_tpu_torch.utils.synth import BoxSequence, default_camera
+
+    def maps_of(img, n_features):
+        ext = ORBExtractor(n_features=n_features, normalize_exposure=True)
+        buf, table = ext._pyramid(torch.from_numpy(img.astype(np.float32)).to(dev))
+        return ext, table, fk.fused_frontend_pyramid(buf, table, ext.ini_th, ext.min_th)
+
+    rng = np.random.default_rng(0)
+    n_cases, valid = 0, {}
+    for w, h in SELECT_SIZES:
+        frame = BoxSequence(camera=default_camera(w, h), seed=5, n_frames=100, turns=0.35).render(0)
+        for n_features in SELECT_FEATURES:
+            ext, table, maps = maps_of(frame, n_features)
+            sel = _select_describe_case(torch, ext, table, maps, f"{w}x{h}, {n_features} features")
+            valid[(w, h, n_features)] = int(sel[2].sum())
+            _check(valid[(w, h, n_features)] > 0.5 * min(n_features, 1000), f"select at {w}x{h}: few keypoints")
+            n_cases += 1
+    hard = {"noise": rng.integers(0, 256, (480, 640)),
+            "tile": np.tile(rng.integers(0, 256, (32, 32)), (15, 20)),
+            "flat": np.full((480, 640), 7.0)}
+    for kind, img in hard.items():
+        ext, table, maps = maps_of(img, 1000)
+        sel = _select_describe_case(torch, ext, table, maps, f"640x480 {kind}")
+        _check((int(sel[2].sum()) == 0) == (kind == "flat"), f"select on the {kind} image: {int(sel[2].sum())} valid")
+        n_cases += 1
+
+    frame = BoxSequence(camera=default_camera(640, 480), seed=5, n_frames=100, turns=0.35).render(0)
+    ext, table, maps = maps_of(frame, 1000)
+    args = (ext.budgets, ext.cell_size, ext.per_cell_k)
+    tables = ext._descriptor_tables(dev)
+    pxy = sk.select_keypoints(maps, table, *args)[0]
+    select = lambda: sk.select_keypoints(maps, table, *args)  # noqa: E731
+    describe = lambda: dk.describe_keypoints(maps[0], table, pxy, ext.budgets, ext.scales, tables)  # noqa: E731
+    out = {}
+    for name, fn, twin, kernel, (bound_ms, bound_by) in (
+            ("select", select, lambda: select_plain(maps, table, *args), "select_fused",
+             select_bound(table, maps, ext.budgets, ext.cell_size, ext.per_cell_k)),
+            ("describe", describe, lambda: describe_plain(maps[0], table, pxy, ext.budgets, ext.scales, tables),
+             "describe_fused", describe_bound(table, maps[0], pxy, ext.budgets))):
+        call_ms = _cuda_ms(fn, 200)
+        device_ms, _ = _device_ms(fn, 50, kernel, per_call=1)
+        plain_ms = _cuda_ms(twin, 10)
+        out[name] = {"max_abs_err": 0.0, "ms": device_ms, "device_ms": device_ms, "call_ms": call_ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                     "kernel_launches_per_call": 1}
+    # the whole extraction as the tracker runs it: 4 kernels, no other
+    img = torch.from_numpy(frame).to(dev)
+    extract_ms, n_kernels = _device_ms(lambda: ext(img), 20, "")
+    _check(n_kernels == 4 * 20, f"a 640x480 extraction launched {n_kernels / 20} kernels, want 4 (pyramid, K1, "
+           "select, describe)")
+    extract_call_ms = _cuda_ms(lambda: ext(img), 50)
+    n_px = sum(a * b for a, b in table.shapes)
+    print(f"[3 select] select and describe bit-equal to their twins on the card in {n_cases} cases "
+          f"({', '.join(f'{w}x{h}' for w, h in SELECT_SIZES)} x {SELECT_FEATURES} features; noise, tile, flat at "
+          f"640x480) | per 640x480 extraction ({n_px} px over 8 levels, {ext.capacity} slots, "
+          f"{valid[(640, 480, 1000)]} valid), 1 launch each: " + "; ".join(
+              f"{name} device {o['device_ms']:.4f} ms (torch.profiler), call {o['call_ms']:.4f} ms (CUDA events), "
+              f"twin {o['plain_ms']:.4f} ms, bound {o['bound_ms']:.4f} ms ({o['bound_by']}, "
+              f"{100 * o['bound_ms'] / o['device_ms']:.1f}% of device)" for name, o in out.items())
+          + f" | library: none (no single PyTorch call computes either) | the whole extraction: 4 kernels "
+          f"(torch.profiler), device {extract_ms:.4f} ms, call {extract_call_ms:.4f} ms")
+    return out["select"], out["describe"]
 
 
 FX = FY = 500.0
@@ -755,6 +944,9 @@ def phase_tracking(torch, dev, k1, k2):
     _check(launches["fused_frontend"] == N_TRACK + 1 and fused_frontend.launches == 0,
            f"K1 launched {launches['fused_frontend']} times (+{fused_frontend.launches} single-level) for "
            f"{N_TRACK + 1} extractions (want 1 per extraction)")
+    for name in ("pyramid_resize", "select_keypoints", "describe_keypoints"):
+        _check(launches[name] == N_TRACK + 1,
+               f"{name} launched {launches[name]} times for {N_TRACK + 1} extractions (want 1 per extraction)")
     _check(launches["pose_optimization_fused"] == 2 * N_TRACK,
            f"K2 launched {launches['pose_optimization_fused']} times for {N_TRACK} frames (want 2 per frame)")
     worst_pos = worst_rot = 0.0
@@ -807,14 +999,18 @@ def phase_slam(torch, dev, sensor_name, n_frames, jax_ate, tag):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
-    rows = []  # (i, pose, ms, keyframe inserted, K1 launches, K2 launches)
+    rows = []  # (i, pose, ms, keyframe inserted, K1 launches, K2 launches, (pyramid, select, describe) launches)
+    counters = [c for name, c in zip(LAUNCH_NAMES, _launch_counters())
+                if name in ("pyramid_resize", "select_keypoints", "describe_keypoints")]
     for i, (a, b) in enumerate(frames):
         kf_before, k1, k2 = slam.map.next_kf_id, fused_frontend_pyramid.launches, pose_optimization_fused.launches
+        others = [c.launches for c in counters]
         timer.start()
         pose = track(a, b, i / 30.0)
         ms = timer.stop()
         rows.append((i, pose, ms, slam.map.next_kf_id > kf_before,
-                     fused_frontend_pyramid.launches - k1, pose_optimization_fused.launches - k2))
+                     fused_frontend_pyramid.launches - k1, pose_optimization_fused.launches - k2,
+                     tuple(c.launches - n for c, n in zip(counters, others))))
     launches = _read_launches()
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
 
@@ -836,8 +1032,11 @@ def phase_slam(torch, dev, sensor_name, n_frames, jax_ate, tag):
         _check(n_ba >= 4, f"{sensor_name}: local BA ran {n_ba} times, want >= 4")
     _check(ate <= bound, f"{sensor_name}: ATE {ate:.4f} m over {bound:.4f} m (1.5 x JAX {jax_ate} m + 1 cm)")
     k1_per = {r[4] for r in rows}
-    _check(k1_per == {1 if sensor == Sensor.RGBD else 2},
-           f"{sensor_name}: K1 launches per frame {sorted(k1_per)}")
+    per_frame = 1 if sensor == Sensor.RGBD else 2
+    _check(k1_per == {per_frame}, f"{sensor_name}: K1 launches per frame {sorted(k1_per)}")
+    others_per = {r[6] for r in rows}
+    _check(others_per == {(per_frame,) * 3},
+           f"{sensor_name}: (pyramid, select, describe) launches per frame {sorted(others_per)}")
     k2_per = [r[5] for r in rows[1:]]
     _check(min(k2_per) >= 2, f"{sensor_name}: K2 launched {min(k2_per)} times on a tracked frame (want >= 2)")
 
@@ -853,7 +1052,7 @@ def phase_slam(torch, dev, sensor_name, n_frames, jax_ate, tag):
           f"(bound {bound:.4f} m = 1.5 x JAX CPU {jax_ate} m + 1 cm) | per-frame ms (CUDA events, frames 1-"
           f"{n_frames - 1}): ordinary frames ({len(plain_ms)}) {stats(plain_ms)}; keyframe frames "
           f"({len(kf_ms)}, tracking + synchronous local mapping + local BA) {stats(kf_ms)}; frame 0 "
-          f"{rows[0][2]:.3f} | launches per frame: K1 {sorted(k1_per)}, K2 mean "
+          f"{rows[0][2]:.3f} | launches per frame: K1, pyramid, select, describe {per_frame} each, K2 mean "
           f"{statistics.mean(k2_per):.2f} (min {min(k2_per)}, max {max(k2_per)}) | peak device memory "
           f"{peak_mib:.1f} MiB (torch.cuda.max_memory_allocated)")
     return launches
@@ -861,17 +1060,20 @@ def phase_slam(torch, dev, sensor_name, n_frames, jax_ate, tag):
 
 # the kernels of the main path, by their names in the kernels line, in the
 # order of _launch_counters()
-LAUNCH_NAMES = ("fused_frontend", "pose_optimization_fused", "pyramid_resize")
+LAUNCH_NAMES = ("fused_frontend", "pose_optimization_fused", "pyramid_resize", "select_keypoints",
+                "describe_keypoints")
 
 
 def _launch_counters():
     """The wrappers whose `.launches` count the main path's kernel launches:
-    K1 (the pyramid launch), K2 and the pyramid kernel."""
+    K1 (the pyramid launch), K2, the pyramid kernel, select and describe."""
+    from orbslam2commentedbyxcm_tpu_torch.ops.describe_kernel import describe_keypoints
     from orbslam2commentedbyxcm_tpu_torch.ops.frontend_kernel import fused_frontend_pyramid
     from orbslam2commentedbyxcm_tpu_torch.ops.poseopt_kernel import pose_optimization_fused
     from orbslam2commentedbyxcm_tpu_torch.ops.pyramid_kernel import pyramid_resize
+    from orbslam2commentedbyxcm_tpu_torch.ops.select_kernel import select_keypoints
 
-    return fused_frontend_pyramid, pose_optimization_fused, pyramid_resize
+    return fused_frontend_pyramid, pose_optimization_fused, pyramid_resize, select_keypoints, describe_keypoints
 
 
 def _reset_launches(counts: dict | None = None):
@@ -898,7 +1100,7 @@ def _stats(ms):
 def _track_timed(track, rows, args, timer):
     """One System call timed with CUDA events, appended to `rows` as (pose,
     ms, K1 launches, K2 launches); returns the pose."""
-    k1c, k2c, _ = _launch_counters()
+    k1c, k2c = _launch_counters()[:2]
     k1, k2 = k1c.launches, k2c.launches
     timer.start()
     pose = track(*args)
@@ -1444,7 +1646,7 @@ def phase_eight(torch, dev, card: str):
     t0 = time.perf_counter()
     images = render_frames("eight", EIGHT_FRAMES, cam)  # once for both runs
     render_s = time.perf_counter() - t0
-    k1c, k2c, _ = _launch_counters()
+    k1c, k2c = _launch_counters()[:2]
     launches = dict.fromkeys(LAUNCH_NAMES, 0)
     for async_mapping in (False, True):
         torch.cuda.synchronize()
@@ -2235,6 +2437,7 @@ def main() -> int:
     card = timed(1, phase_device, torch)
     timed(2, phase_build)
     pyramid = timed("3 pyramid", phase_pyramid, torch, dev)
+    select, describe = timed("3 select", phase_select_describe, torch, dev)
     k1 = timed(3, phase_k1, torch, dev)
     k2 = timed(4, phase_k2, torch, dev)
     timed(5, phase_flagship, torch, dev)
@@ -2252,8 +2455,9 @@ def main() -> int:
     launches = {name: sum(r[name] for r in runs) for name in runs[0]}
     for r in runs:
         _check(all(r.values()), f"a kernel of the main path was never launched: {r}")
-        # one pyramid launch per K1 launch: both run once per extraction
-        _check(r["pyramid_resize"] == r["fused_frontend"], f"not one pyramid launch per K1 launch: {r}")
+        # one pyramid, select and describe launch per K1 launch: each runs once per extraction
+        for name in ("pyramid_resize", "select_keypoints", "describe_keypoints"):
+            _check(r[name] == r["fused_frontend"], f"not one {name} launch per K1 launch: {r}")
     kernels = [
         {"name": "fused_frontend", "route": "cuda",
          "source": "orbslam2commentedbyxcm_tpu_torch/csrc/frontend.cu",
@@ -2267,6 +2471,14 @@ def main() -> int:
          "source": "orbslam2commentedbyxcm_tpu_torch/csrc/pyramid.cu",
          "replaces": "orbslam2commentedbyxcm_tpu/ops/orb.py:337-339",
          "launches": launches["pyramid_resize"], **pyramid},
+        {"name": "select_keypoints", "route": "cuda",
+         "source": "orbslam2commentedbyxcm_tpu_torch/csrc/select.cu",
+         "replaces": "orbslam2commentedbyxcm_tpu/ops/orb.py:370-441",
+         "launches": launches["select_keypoints"], **select},
+        {"name": "describe_keypoints", "route": "cuda",
+         "source": "orbslam2commentedbyxcm_tpu_torch/csrc/describe.cu",
+         "replaces": "orbslam2commentedbyxcm_tpu/ops/descriptors.py:40-134",
+         "launches": launches["describe_keypoints"], **describe},
     ]
     print(f"[18 total] {time.perf_counter() - t0:.1f} s; by phase: "
           + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))

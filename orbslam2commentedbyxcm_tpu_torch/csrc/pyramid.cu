@@ -88,6 +88,8 @@
 
 #include <atomic>
 
+#include "coresident.cuh"
+
 // Design choices (tools/profile_kernels.py builds variants with -D).
 #ifndef PYR_THREADS
 #define PYR_THREADS 256  // threads of a block
@@ -119,7 +121,6 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int MAX_LEVELS = 16;
-constexpr int MAX_DEVICES = 64;
 constexpr int HEAD = 8;        // host layout, see orb_pyramid
 constexpr int LEVEL_COLS = 11;
 constexpr int CHUNK = 1024;    // values per partial of the gain sums, and partials per chunk of their sum
@@ -526,29 +527,7 @@ __global__ void __launch_bounds__(NT) pyramid_fused(const float* __restrict__ im
   }
 }
 
-std::atomic<int> g_capacity[MAX_DEVICES];  // co-resident blocks per device, 0 until known
-
-// Blocks of pyramid_fused that fit on `device` at once (cached), or 0 with *err set.
-int capacity(int device, cudaError_t* err) {
-  if (device >= 0 && device < MAX_DEVICES) {
-    const int known = g_capacity[device].load(std::memory_order_relaxed);
-    if (known > 0) return known;
-  }
-  *err = cudaFuncSetAttribute(pyramid_fused, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(SMEM_BYTES));
-  if (*err != cudaSuccess) return 0;
-  int per_sm = 0, n_sm = 0;
-  *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pyramid_fused, NT, SMEM_BYTES);
-  if (*err != cudaSuccess) return 0;
-  *err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
-  if (*err != cudaSuccess) return 0;
-  if (per_sm < 1) {
-    *err = cudaErrorInvalidConfiguration;
-    return 0;
-  }
-  if (device >= 0 && device < MAX_DEVICES) g_capacity[device].store(per_sm * n_sm, std::memory_order_relaxed);
-  return per_sm * n_sm;
-}
+std::atomic<int> g_capacity[coresident::MAX_DEVICES];  // co-resident blocks per device, 0 until known
 
 }  // namespace
 
@@ -631,7 +610,9 @@ extern "C" int orb_pyramid(const float* img, int h, int w, float* part, int n_pa
   if (e == cudaSuccess && prev != device) e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int boxes = plan.n_rb * plan.n_cb;
-  const int cap = capacity(device, &e);
+  const int smem = static_cast<int>(SMEM_BYTES);
+  const int cap =
+      coresident::blocks(reinterpret_cast<const void*>(pyramid_fused), NT, smem, smem, device, g_capacity, &e);
   if (cap > 0) {
     const int want = part != nullptr && n_part > boxes ? n_part : boxes;
     const int grid = want < cap ? want : cap;

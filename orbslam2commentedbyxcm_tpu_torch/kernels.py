@@ -15,9 +15,10 @@ machines without a CUDA toolkit, and only `library()` needs nvcc.
 compiler (g++), which the CPU machines have too, and raises if it cannot:
 nothing falls back to Python in its place.
 
-No --use_fast_math: the frontend kernel's blur and the pyramid kernel's
-gain and resize must round as their torch twins do, and the pose solve
-relies on IEEE division, sqrt, sin, cos.
+No --use_fast_math: the frontend kernel's blur, the pyramid kernel's gain
+and resize and the describe kernel's moments, atan2 and rotations must
+round as their torch twins do, and the pose solve relies on IEEE division,
+sqrt, sin, cos.
 """
 
 from __future__ import annotations
@@ -53,6 +54,12 @@ _SIGNATURES = {
     # int pose_opt(t_in, pts, obs, mask, isig, n, fx, fy, cx, cy, bf, n_rounds, n_iters,
     #              t_out, inliers, counts, chi2, stream)
     "pose_opt": [_P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P, _P, _P],
+    # int orb_select(maps, total, table (host), n_levels, cell_size, per_cell_k, margin, scratch, n_keys,
+    #                pxy, response, valid, cap, device, stream)
+    "orb_select": [_P, _I, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P, _I, _I, _P],
+    # int orb_describe(blurred, total, table (host), scales (host), n_levels, pxy, cap, pattern, moments,
+    #                  uv, angle, level, desc, device, stream)
+    "orb_describe": [_P, _I, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P],
 }
 
 HOST_FLAGS = ["-std=c++17", "-O3", "-fPIC", "-pthread"]

@@ -12,6 +12,16 @@ tracking against map changes (include/Map.h:114). Here:
     an insertion raises the local BA's abort flag (mbAbortBA), and fuse, BA
     and culling wait while newer keyframes are queued (`pending_check`, the
     CheckNewKeyFrames() gates).
+    The worker holds `map_lock` for a whole keyframe, where the reference's
+    LocalMapping takes the map mutex only around local BA's write-back
+    (Optimizer::LocalBundleAdjustment); so a keyframe queued by one frame
+    is taken up by the worker before the next frame is tracked
+    (`wait_taken`, called by the System before it takes the lock for a
+    frame). Without that hand-off
+    the order was a race between the woken worker and the tracking thread
+    taking the lock again, which it does within a millisecond once
+    extraction is four kernel launches: the worker could wait several
+    frames, and the figure-eight's map and loop changed from run to run.
   * `AsyncLoopClosing`: a second worker, fed by the mapping stage. The BoW
     transform (`prepare_keyframe`) and the Sim3 phase (`try_close`, on a
     snapshot) run without the map lock; detection, the snapshot and the
@@ -119,16 +129,34 @@ class _AsyncStage:
 
 class AsyncMapping(_AsyncStage):
     def __init__(self, inner, map_lock: threading.Lock):
+        object.__setattr__(self, "_handoff", threading.Condition())
+        object.__setattr__(self, "_counts", [0, 0])  # keyframes queued, keyframes taken up by the worker
         super().__init__(inner, map_lock, "local-mapping")
         # the wrapped stage defers fuse / BA / culling while newer keyframes
         # are queued (reference CheckNewKeyFrames, src/LocalMapping.cc:63-71)
         inner.pending_check = lambda: not self._queue.empty()
 
+    def _process(self, kf_id: int):
+        with self.lock:
+            with self._handoff:
+                self._counts[1] += 1
+                self._handoff.notify_all()
+            self.inner.insert_keyframe(kf_id)
+
     def insert_keyframe(self, kf_id: int):
         """Signal a running local BA to stop (LocalMapping::InsertKeyFrame sets
         mbAbortBA, src/LocalMapping.cc:117) and enqueue."""
         self.inner.abort_ba = True
+        with self._handoff:
+            self._counts[0] += 1
         super().insert_keyframe(kf_id)
+
+    def wait_taken(self):
+        """Block until the worker has taken up (holds, or has released, the
+        map lock for) every keyframe queued so far. Call without the map
+        lock: the worker needs it."""
+        with self._handoff:
+            self._handoff.wait_for(lambda: self._counts[1] >= self._counts[0])
 
     def accepts_keyframes(self) -> bool:
         """LocalMapping::AcceptKeyFrames as the queue-cap check."""

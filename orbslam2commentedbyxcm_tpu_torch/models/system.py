@@ -274,6 +274,10 @@ class System:
             self.tracer.begin_frame(Frame._next_id, timestamp)
 
     def _track_locked(self, frame: Frame):
+        # async mapping: the keyframe an earlier frame queued is taken up by
+        # the mapping worker before this frame takes the map lock
+        if isinstance(self.local_mapping, AsyncMapping):
+            self.local_mapping.wait_taken()
         with span(self.tracer, "tracking"), self.map_lock:
             state = self.tracking.track_frame(frame)
         if self.tracer is not None:

@@ -7,18 +7,23 @@ and the same Gaussian-moment orientation and rotated BRIEF descriptors
 (ops/descriptors). Descriptors are 256 bits, packed as (N, 8) int32 words
 holding the JAX package's uint32 bit patterns.
 
-The exposure gain and the level images are computed by one hand-written CUDA
-kernel for CUDA tensors (ops/pyramid_kernel, csrc/pyramid.cu) into one flat
-buffer, and blur + FAST + NMS over all of them is one launch of another
-(ops/frontend_kernel, csrc/frontend.cu). `_pyramid_plain` (with
-`_exposure_gain` and `_tree_sum`) and `_separable_blur`, `_fast_maps` and
-`_nms3` below are their plain twins, bit for bit, and run for CPU tensors;
-so the CPU computes the very level images the card does. The frontend twin
-has the XLA path's border semantics. The pyramid twin sums each resize's
-nonzero taps in ascending order with fused multiply-adds and the gain's
-mean and MAD as adjacent-pair trees: orders of its own, which the JAX
-package's XLA dot and mean do not share, so levels >= 1 and the gain differ
-from JAX's by f32 ulps.
+For CUDA tensors an extraction is four launches of hand-written CUDA
+kernels: the exposure gain and the level images into one flat buffer
+(ops/pyramid_kernel, csrc/pyramid.cu), blur + FAST + NMS over all of them
+(ops/frontend_kernel, csrc/frontend.cu), the per-cell selection of every
+level (ops/select_kernel, csrc/select.cu), and orientation + descriptors of
+every keypoint (ops/describe_kernel, csrc/describe.cu). Their plain twins,
+bit for bit, run for CPU tensors: `_pyramid_plain` (with `_exposure_gain`
+and `_tree_sum`), `_separable_blur`, `_fast_maps` and `_nms3`,
+`select_plain` (`select_level` per level) below, and
+ops/descriptors.describe_plain; so the CPU extracts the very features the
+card does. The frontend twin has the XLA path's border semantics and the
+selection is the JAX package's, exactly. The pyramid twin sums each
+resize's nonzero taps in ascending order with fused multiply-adds and the
+gain's mean and MAD as adjacent-pair trees, and the orientation moments
+and atan2 have an order of their own: orders that the JAX package's XLA
+dot, mean and contraction do not share, so levels >= 1, the gain and the
+angles differ from JAX's by f32 ulps.
 """
 
 from __future__ import annotations
@@ -30,10 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from orbslam2commentedbyxcm_tpu_torch.ops.descriptors import (
-    descriptors_from_windows,
-    gather_windows,
-)
+from orbslam2commentedbyxcm_tpu_torch.ops.descriptors import DescriptorTables, descriptor_tables
 
 # Circle-16 Bresenham ring (dx, dy), circular order (matches OpenCV FAST).
 _RING = np.array(
@@ -277,20 +279,15 @@ def _gauss_moment_taps(radius: int = PATCH_RADIUS, sigma: float = 7.0):
     return g.astype(np.float32), (xs * g).astype(np.float32)
 
 
-def _reflect_index(n: int, pad: int, device) -> torch.Tensor:
-    """Source index of each position of a `pad`-wide reflect padding
-    (numpy/jnp mode="reflect": the edge sample is not repeated)."""
-    i = torch.remainder(torch.arange(-pad, n + pad, device=device), 2 * (n - 1))
-    return torch.where(i >= n, 2 * (n - 1) - i, i)
-
-
 class ORBExtractor:
     """Batched ORB extractor producing fixed-capacity FrameFeatures.
 
     Same constructor as the JAX ORBExtractor, without `use_pallas`: the
-    gain and the pyramid run through ops/pyramid_kernel, then blur + FAST +
-    NMS over the whole pyramid through ops/frontend_kernel, hand-written
-    CUDA kernels for CUDA tensors and their twins for CPU tensors.
+    gain and the pyramid run through ops/pyramid_kernel, blur + FAST + NMS
+    over the whole pyramid through ops/frontend_kernel, the selection
+    through ops/select_kernel and the descriptors through
+    ops/describe_kernel: hand-written CUDA kernels for CUDA tensors and
+    their twins for CPU tensors.
     """
 
     def __init__(
@@ -337,6 +334,7 @@ class ORBExtractor:
         kmx[lo:hi, lo:hi] = np.outer(g, xg)   # m10: g(y) rows, x*g(x) cols
         kmy[lo:hi, lo:hi] = np.outer(xg, g)   # m01: y*g(y) rows, g(x) cols
         self._kmx, self._kmy = kmx, kmy
+        self._tables: dict = {}  # device -> DescriptorTables (`_descriptor_tables`)
 
     def __call__(self, image) -> FrameFeatures:
         """image: (H, W) uint8/float32 numpy array or tensor -> FrameFeatures
@@ -364,103 +362,122 @@ class ORBExtractor:
         target = self.exposure_target_mad if self.normalize_exposure else None
         return pyramid_resize(img.contiguous(), table, target), table
 
+    def _descriptor_tables(self, device) -> DescriptorTables:
+        """The BRIEF pattern and the moment masks on `device`, uploaded once
+        per extractor and device."""
+        key = str(torch.device(device))
+        tables = self._tables.get(key)
+        if tables is None:
+            tables = self._tables[key] = descriptor_tables(self._pattern, self._kmx, self._kmy, device)
+        return tables
+
     def _extract(self, img: torch.Tensor) -> FrameFeatures:
-        # imported here: frontend_kernel imports this module for the twin
-        from orbslam2commentedbyxcm_tpu_torch.ops.frontend_kernel import fused_frontend_pyramid, level_views
+        """Four stages, each one kernel launch for CUDA tensors and its twin
+        for CPU tensors: the gain and the pyramid, blur + FAST + NMS (K1),
+        the per-cell selection, orientation and descriptors."""
+        # imported here: these modules import this one for their twins
+        from orbslam2commentedbyxcm_tpu_torch.ops.describe_kernel import describe_keypoints
+        from orbslam2commentedbyxcm_tpu_torch.ops.frontend_kernel import fused_frontend_pyramid
+        from orbslam2commentedbyxcm_tpu_torch.ops.select_kernel import select_keypoints
 
         buf, table = self._pyramid(img)
         maps = fused_frontend_pyramid(buf, table, self.ini_th, self.min_th)
-        outs = [
-            self._select_level(*level_maps, lvl)
-            for lvl, level_maps in enumerate(zip(*(level_views(m, table) for m in maps)))
-        ]
-        uv, resp, level, patches, valid = (torch.cat([o[i] for o in outs]) for i in range(5))
-        desc, ang = descriptors_from_windows(patches, self._pattern, self._kmx, self._kmy)
-        return FrameFeatures(uv, resp, ang, level, desc, valid)
+        pxy, response, valid = select_keypoints(maps, table, self.budgets, self.cell_size, self.per_cell_k)
+        uv, angle, level, desc = describe_keypoints(maps[0], table, pxy, self.budgets, self.scales,
+                                                    self._descriptor_tables(img.device))
+        return FrameFeatures(uv, response, angle, level, desc, valid)
 
-    def _select_level(self, blurred, nms_hi, nms_lo, lvl: int):
-        """A level's frontend maps -> (uv0, response, level, patches, valid)."""
-        budget = self.budgets[lvl]
-        dev = blurred.device
-        hl, wl = blurred.shape
-        if budget == 0:
-            return (
-                torch.zeros((0, 2), device=dev), torch.zeros(0, device=dev),
-                torch.zeros(0, dtype=torch.int32, device=dev),
-                torch.zeros((0, 48, 48), dtype=torch.bfloat16, device=dev),
-                torch.zeros(0, dtype=torch.bool, device=dev),
-            )
 
-        # Border exclusion: descriptors/orientation need EDGE margin.
-        margin = PATCH_RADIUS + 1
-        ys = torch.arange(hl, device=dev)[:, None]
-        xs = torch.arange(wl, device=dev)[None, :]
-        inbounds = (ys >= margin) & (ys < hl - margin) & (xs >= margin) & (xs < wl - margin)
-        nms_hi = torch.where(inbounds, nms_hi, 0.0)
-        nms_lo = torch.where(inbounds, nms_lo, 0.0)
+MARGIN = PATCH_RADIUS + 1  # border a keypoint keeps from its level's edges (orientation and descriptor patch)
 
-        # Spatial-uniformity selection replacing DistributeOctTree: up to
-        # per_cell_k per cell, then low within-cell rank first globally.
-        cs = self.cell_size
-        cy, cx = -(-hl // cs), -(-wl // cs)
-        ph, pw = cy * cs, cx * cs
-        k = self.per_cell_k
-        in_cell = torch.arange(cs * cs, device=dev)
 
-        def cell_topk(m):
-            m = F.pad(m, (0, pw - wl, 0, ph - hl))
-            cur = m.reshape(cy, cs, cx, cs).permute(0, 2, 1, 3).reshape(cy, cx, cs * cs)
-            tv, ti = [], []
-            for _ in range(k):
-                s = cur.max(dim=-1).values                        # (cy, cx)
-                sb = s[..., None]
-                # first-index tie-break, as the JAX masked-min formulation
-                i = torch.where((cur >= sb) & (sb > 0), in_cell, cs * cs).min(dim=-1).values
-                i = torch.where(s > 0, i, 0)
-                tv.append(s)
-                ti.append(i)
-                cur = torch.where(in_cell == i[..., None], -torch.inf, cur)
-            return torch.stack(tv, -1), torch.stack(ti, -1)    # (cy, cx, k)
+def select_level(nms_hi, nms_lo, budget: int, cell_size: int, per_cell_k: int):
+    """Per-cell selection of one level, the plain twin of csrc/select.cu ->
+    (px, py) int64, response float32, valid bool, each (budget,).
 
-        # Per-cell threshold fallback (reference: retry the cell with minTh
-        # when the strict threshold finds nothing, src/ORBextractor.cc:1084).
-        tv_hi, ti_hi = cell_topk(nms_hi)
-        tv_lo, ti_lo = cell_topk(nms_lo)
-        has_hi = tv_hi[:, :, :1] > 0
-        top_vals = torch.where(has_hi, tv_hi, tv_lo)
-        top_idx = torch.where(has_hi, ti_hi, ti_lo)
-        rank = torch.arange(k, dtype=torch.float32, device=dev)
-        key = torch.where(top_vals > 0, rank * 1e6 - top_vals, torch.inf)
-        flat_key = key.reshape(-1)
-        # smallest keys, ties to the lower index (lax.top_k's order): a
-        # stable sort, since torch.topk promises no tie order
-        n_take = min(budget, flat_key.shape[0])
-        sel = torch.sort(flat_key, stable=True).indices[:n_take]
-        if n_take < budget:
-            sel = F.pad(sel, (0, budget - n_take))
-        valid = torch.isfinite(flat_key[sel])
-        if n_take < budget:
-            valid = valid & (torch.arange(budget, device=dev) < n_take)
+    Spatial-uniformity selection replacing DistributeOctTree: up to
+    per_cell_k per cell (the NMS map of the 20 threshold, else of the 7),
+    then low within-cell rank first globally. Every step is exact (max,
+    min, compares, key = rank * 1e6 - score in float32, a stable sort), so
+    any order of evaluation gives these bits."""
+    dev = nms_hi.device
+    hl, wl = nms_hi.shape
+    # Border exclusion: descriptors/orientation need EDGE margin.
+    ys = torch.arange(hl, device=dev)[:, None]
+    xs = torch.arange(wl, device=dev)[None, :]
+    inbounds = (ys >= MARGIN) & (ys < hl - MARGIN) & (xs >= MARGIN) & (xs < wl - MARGIN)
+    nms_hi = torch.where(inbounds, nms_hi, 0.0)
+    nms_lo = torch.where(inbounds, nms_lo, 0.0)
 
-        # Decode (y, x) level coordinates of selections.
-        cell_flat = sel // k
-        cell_y, cell_x = cell_flat // cx, cell_flat % cx
-        inner = top_idx.reshape(-1)[sel]
-        py = cell_y * cs + inner // cs
-        px = cell_x * cs + inner % cs
-        response = top_vals.reshape(-1)[sel]
+    cs = cell_size
+    cy, cx = -(-hl // cs), -(-wl // cs)
+    ph, pw = cy * cs, cx * cs
+    k = per_cell_k
+    in_cell = torch.arange(cs * cs, device=dev)
 
-        # Orientation + descriptor patches from the reflect-padded,
-        # bf16-rounded blurred level.
-        padded = blurred[_reflect_index(hl, EDGE_PAD, dev)][:, _reflect_index(wl, EDGE_PAD, dev)]
-        patches = gather_windows(padded.to(torch.bfloat16), px, py)
+    def cell_topk(m):
+        m = F.pad(m, (0, pw - wl, 0, ph - hl))
+        cur = m.reshape(cy, cs, cx, cs).permute(0, 2, 1, 3).reshape(cy, cx, cs * cs)
+        tv, ti = [], []
+        for _ in range(k):
+            s = cur.max(dim=-1).values                        # (cy, cx)
+            sb = s[..., None]
+            # first-index tie-break, as the JAX masked-min formulation
+            i = torch.where((cur >= sb) & (sb > 0), in_cell, cs * cs).min(dim=-1).values
+            i = torch.where(s > 0, i, 0)
+            tv.append(s)
+            ti.append(i)
+            cur = torch.where(in_cell == i[..., None], -torch.inf, cur)
+        return torch.stack(tv, -1), torch.stack(ti, -1)    # (cy, cx, k)
 
-        scale = torch.tensor(self.scales[lvl], dtype=torch.float32, device=dev)
-        uv0 = torch.stack([px.float(), py.float()], dim=-1) * scale
-        return (
-            uv0,
-            response,
-            torch.full((budget,), lvl, dtype=torch.int32, device=dev),
-            patches,
-            valid,
-        )
+    # Per-cell threshold fallback (reference: retry the cell with minTh
+    # when the strict threshold finds nothing, src/ORBextractor.cc:1084).
+    tv_hi, ti_hi = cell_topk(nms_hi)
+    tv_lo, ti_lo = cell_topk(nms_lo)
+    has_hi = tv_hi[:, :, :1] > 0
+    top_vals = torch.where(has_hi, tv_hi, tv_lo)
+    top_idx = torch.where(has_hi, ti_hi, ti_lo)
+    rank = torch.arange(k, dtype=torch.float32, device=dev)
+    key = torch.where(top_vals > 0, rank * 1e6 - top_vals, torch.inf)
+    flat_key = key.reshape(-1)
+    # smallest keys, ties to the lower index (lax.top_k's order): a
+    # stable sort, since torch.topk promises no tie order
+    n_take = min(budget, flat_key.shape[0])
+    sel = torch.sort(flat_key, stable=True).indices[:n_take]
+    if n_take < budget:
+        sel = F.pad(sel, (0, budget - n_take))
+    valid = torch.isfinite(flat_key[sel])
+    if n_take < budget:
+        valid = valid & (torch.arange(budget, device=dev) < n_take)
+
+    # Decode (y, x) level coordinates of selections.
+    cell_flat = sel // k
+    cell_y, cell_x = cell_flat // cx, cell_flat % cx
+    inner = top_idx.reshape(-1)[sel]
+    py = cell_y * cs + inner // cs
+    px = cell_x * cs + inner % cs
+    return px, py, top_vals.reshape(-1)[sel], valid
+
+
+def select_plain(maps: torch.Tensor, table, budgets, cell_size: int, per_cell_k: int):
+    """Plain twin of the select kernel: K1's (3, total) buffer (blurred,
+    nms_hi, nms_lo laid out by `table`) -> ((px, py) (2, capacity) int32
+    level coordinates, response (capacity,) float32, valid (capacity,)
+    bool), each level's `budgets[l]` slots in turn, written in place."""
+    from orbslam2commentedbyxcm_tpu_torch.ops.frontend_kernel import level_views
+
+    cap = sum(budgets)
+    dev = maps.device
+    pxy = torch.empty((2, cap), dtype=torch.int32, device=dev)
+    response = torch.empty(cap, dtype=torch.float32, device=dev)
+    valid = torch.empty(cap, dtype=torch.bool, device=dev)
+    at = 0
+    for nms_hi, nms_lo, budget in zip(level_views(maps[1], table), level_views(maps[2], table), budgets):
+        if budget:
+            px, py, resp, ok = select_level(nms_hi, nms_lo, budget, cell_size, per_cell_k)
+            pxy[0, at : at + budget] = px
+            pxy[1, at : at + budget] = py
+            response[at : at + budget] = resp
+            valid[at : at + budget] = ok
+        at += budget
+    return pxy, response, valid

@@ -4,9 +4,11 @@ closing on worker threads, against the JAX package's behaviour.
 Stand-in stages check the mechanics: the loop worker's BoW phase runs without
 the map lock; AsyncMapping.insert_keyframe raises the abort flag and
 `accepts_keyframes()` turns false at QUEUE_CAP queued keyframes; with newer
-keyframes queued, LocalMapping defers fuse and BA. One divergence from the
-JAX package is stated here: a stage's exception reaches `wait_idle()` and
-`shutdown()` (the JAX workers print it and go on), while the worker still
+keyframes queued, LocalMapping defers fuse and BA; each queued keyframe is
+taken up by the mapping worker before the next frame takes the map lock
+(`wait_taken`). One divergence from the JAX package is stated here: a
+stage's exception reaches `wait_idle()` and `shutdown()` (the JAX workers
+print it and go on), while the worker still
 drains the rest of its queue. The keyframe policy meets a full mapper as the
 JAX package's does: on the same inputs both interrupt the mapper's BA and
 defer. A 30-frame RGB-D System at 320x240 with 600 features (loop closing
@@ -107,6 +109,49 @@ def test_insert_raises_abort_and_queue_cap_refuses():
         gate.set()
         am.shutdown()
     assert am.accepts_keyframes() and not am._thread.is_alive()
+
+
+def test_mapping_worker_takes_each_keyframe_before_the_next_frame():
+    """`wait_taken` (called by the System before a frame takes the map lock)
+    returns only once the worker holds the lock for every queued keyframe,
+    so a tracking thread that takes the lock again at once cannot keep a
+    keyframe waiting for several frames."""
+    gate = threading.Event()
+
+    class Stub:
+        abort_ba = False
+        pending_check = None
+
+        def insert_keyframe(self, kf_id):
+            assert gate.wait(timeout=10.0)
+
+    lock = threading.Lock()
+    am = AsyncMapping(Stub(), lock)
+    try:
+        am.wait_taken()  # nothing queued
+        with lock:  # the frame that queues the keyframe holds the lock
+            am.insert_keyframe(3)
+        am.wait_taken()
+        assert lock.locked() and not lock.acquire(timeout=0.2)  # the worker holds it for keyframe 3
+    finally:
+        gate.set()
+        am.shutdown()
+    am.wait_taken()
+
+
+def test_async_system_waits_for_the_mapping_worker(monkeypatch):
+    """System(async_mapping=True) calls `wait_taken` before every frame
+    takes the map lock."""
+    calls = []
+    real = AsyncMapping.wait_taken
+    monkeypatch.setattr(AsyncMapping, "wait_taken", lambda self: calls.append(1) or real(self))
+    seq = JBoxSequence(camera=CAM, seed=5, n_frames=100, turns=0.35)
+    s = _system(enable_loop_closing=False, async_mapping=True)
+    try:
+        _track(s, seq, range(4))
+    finally:
+        s.shutdown()
+    assert len(calls) == 4
 
 
 def test_pending_work_defers_fuse_and_ba():

@@ -13,10 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from orbslam2commentedbyxcm_tpu_torch.ops import describe_kernel as dk
 from orbslam2commentedbyxcm_tpu_torch.ops import frontend_kernel as fk
 from orbslam2commentedbyxcm_tpu_torch.ops import optim
 from orbslam2commentedbyxcm_tpu_torch.ops import poseopt_kernel
 from orbslam2commentedbyxcm_tpu_torch.ops import pyramid_kernel as pk
+from orbslam2commentedbyxcm_tpu_torch.ops import select_kernel as sk
 from orbslam2commentedbyxcm_tpu_torch.utils.geometry import se3_exp
 
 torch.set_num_threads(1)
@@ -173,6 +175,124 @@ def test_pyramid_resize_rejects_bad_inputs(cuda_device):
             pk.pyramid_resize(bad, table)
 
 
+def _extraction_maps(device, size, kind, n_features):
+    """An extractor (gain on) and K1's maps of one image on `device`."""
+    from orbslam2commentedbyxcm_tpu_torch.ops.orb import ORBExtractor
+
+    w, h = size
+    rng = np.random.default_rng(0)
+    if kind == "uint8":
+        img = rng.integers(0, 256, (h, w))
+    elif kind == "tile":  # every cell the same texture: ties within and across cells
+        img = np.tile(rng.integers(0, 256, (32, 32)), (h // 32 + 1, w // 32 + 1))[:h, :w]
+    elif kind == "flat":  # no corner anywhere: every slot invalid
+        img = np.full((h, w), 7.0)
+    else:
+        img = _pyramid_image(size, "scene").numpy()
+    ext = ORBExtractor(n_features=n_features, normalize_exposure=True)
+    buf, table = ext._pyramid(torch.from_numpy(img.astype(np.float32)).to(device))
+    return ext, table, fk.fused_frontend_pyramid(buf, table, ext.ini_th, ext.min_th)
+
+
+def _assert_select_describe_twins(ext, table, maps):
+    """One select and one describe launch against their twins on the card
+    and on the CPU: every slot bit-equal, valid or not."""
+    from orbslam2commentedbyxcm_tpu_torch.ops.descriptors import describe_plain
+    from orbslam2commentedbyxcm_tpu_torch.ops.orb import select_plain
+
+    args = (ext.budgets, ext.cell_size, ext.per_cell_k)
+    before = (sk.select_keypoints.launches, dk.describe_keypoints.launches)
+    sel = sk.select_keypoints(maps, table, *args)
+    tables = ext._descriptor_tables(maps.device)
+    desc = dk.describe_keypoints(maps[0], table, sel[0], ext.budgets, ext.scales, tables)
+    torch.cuda.synchronize()
+    assert (sk.select_keypoints.launches, dk.describe_keypoints.launches) == (before[0] + 1, before[1] + 1)
+    for where, m, t in (("card", maps, tables), ("CPU", maps.cpu(), ext._descriptor_tables("cpu"))):
+        ref = select_plain(m, table, *args)
+        for name, a, b in zip(("pxy", "response", "valid"), sel, ref):
+            assert torch.equal(a.cpu(), b.cpu()), f"select {name} vs the twin on the {where}"
+        ref = describe_plain(m[0], table, sel[0].to(m.device), ext.budgets, ext.scales, t)
+        for name, a, b in zip(("uv", "angle", "level", "desc"), desc, ref):
+            assert torch.equal(a.cpu(), b.cpu()), f"describe {name} vs the twin on the {where}"
+    return sel, desc
+
+
+@pytest.mark.parametrize("size", [(640, 480), (752, 480), (1241, 376), (1920, 1080)], ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("n_features", [1000, 1200, 2000, 4000])
+def test_select_and_describe_kernels_bit_equal_to_twins(cuda_device, size, n_features):
+    """Every slot of both kernels bit-equal to the twins at the TUM, EuRoC,
+    KITTI and 1080p sizes, at the feature counts of TUM1, EuRoC, KITTI (and
+    the mono initializer's doubled 1000) and KITTI's doubled initializer."""
+    ext, table, maps = _extraction_maps(cuda_device, size, "scene", n_features)
+    sel, _ = _assert_select_describe_twins(ext, table, maps)
+    assert int(sel[2].sum()) > 0.5 * min(n_features, 1000)
+
+
+@pytest.mark.parametrize("kind", ["scene", "tile"])
+@pytest.mark.parametrize("n_features", [1000, 4000])
+def test_select_and_describe_kernels_at_3840x2160(cuda_device, kind, n_features):
+    """A 4K frame: levels 0 and 1 hold more keys than one block sorts
+    (16384, csrc/select.cu MAX_SORT), so the kernel ranks them by count
+    across the grid; every slot bit-equal all the same, ties included."""
+    ext, table, maps = _extraction_maps(cuda_device, (3840, 2160), kind, n_features)
+    plan = sk.select_plan(table.shapes, table.offsets, tuple(ext.budgets), 32, 4)
+    assert [row[3] * row[4] * 4 > 16384 for row in plan.levels[:3]] == [True, True, False]
+    sel, _ = _assert_select_describe_twins(ext, table, maps)
+    assert int(sel[2].sum()) > 0.5 * min(n_features, 1000)
+
+
+@pytest.mark.parametrize("kind", ["uint8", "tile", "flat"])
+def test_select_and_describe_kernels_on_hard_maps(cuda_device, kind):
+    """Noise, a tiled texture (ties everywhere) and a flat image (every slot
+    invalid) at 640x480, and a 64x48 image with fewer keys than slots."""
+    for size in ((640, 480), (64, 48)):
+        ext, table, maps = _extraction_maps(cuda_device, size, kind, 1000)
+        sel, _ = _assert_select_describe_twins(ext, table, maps)
+        if size == (640, 480):
+            assert (int(sel[2].sum()) == 0) == (kind == "flat")
+        else:
+            assert sk.select_plan(table.shapes, table.offsets, tuple(ext.budgets), 32, 4).n_keys < sum(ext.budgets)
+
+
+def test_select_and_describe_kernels_repeat_themselves(cuda_device):
+    """20 calls back to back give identical bits (no value depends on which
+    block passed the grid barrier first)."""
+    ext, table, maps = _extraction_maps(cuda_device, (640, 480), "scene", 1000)
+    tables = ext._descriptor_tables(cuda_device)
+    first = sk.select_keypoints(maps, table, ext.budgets, 32, 4)
+    first_d = dk.describe_keypoints(maps[0], table, first[0], ext.budgets, ext.scales, tables)
+    for i in range(20):
+        sel = sk.select_keypoints(maps, table, ext.budgets, 32, 4)
+        d = dk.describe_keypoints(maps[0], table, sel[0], ext.budgets, ext.scales, tables)
+        assert all(torch.equal(a, b) for a, b in zip(sel + d, first + first_d)), f"call {i + 1}"
+
+
+def test_select_and_describe_kernels_on_a_side_stream(cuda_device):
+    """Both launch on the current stream: the maps are rewritten on a side
+    stream just before, and the result is the twins'."""
+    ext, table, maps = _extraction_maps(cuda_device, (752, 480), "scene", 1200)
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        maps2 = maps * 1.0
+        _assert_select_describe_twins(ext, table, maps2)
+    side.synchronize()
+
+
+def test_select_and_describe_reject_bad_inputs(cuda_device):
+    ext, table, maps = _extraction_maps(cuda_device, (64, 48), "scene", 200)
+    for bad in (maps.double(), maps[:, : table.total - 1], maps.t().contiguous().t()):
+        with pytest.raises(ValueError):
+            sk.select_keypoints(bad, table, ext.budgets, 32, 4)
+    with pytest.raises(ValueError):
+        sk.select_keypoints(maps, table, ext.budgets, 64, 4)
+    pxy = sk.select_keypoints(maps, table, ext.budgets, 32, 4)[0]
+    tables = ext._descriptor_tables(cuda_device)
+    for bad in (pxy.long(), pxy[:, 1:], pxy.cpu()):
+        with pytest.raises(ValueError):
+            dk.describe_keypoints(maps[0], table, bad, ext.budgets, ext.scales, tables)
+
+
 def test_frontend_kernel_rejects_bad_inputs(cuda_device):
     img = torch.zeros((64, 64), device=cuda_device)
     for bad in (img.double(), img.t()[:, :32], img[None]):
@@ -282,28 +402,27 @@ def test_extractor_on_card_matches_cpu(cuda_device):
     card against the same extractor on the CPU, each extracting on its own,
     over three BoxSequence frames.
 
-    The gain and the pyramid are one fixed order of float32 operations on
-    both devices (csrc/pyramid.cu and its twin), so the level images are
-    bit-equal and so are the keypoints: valid, uv, level and response.
-    Angles agree within 1e-5 rad (the moment matvec sums in another order,
-    and atan2 is libm on the CPU, libdevice on the card) and descriptors
-    differ on at most 5 keypoints by at most 4 bits."""
+    Every stage is one fixed order of float32 operations on both devices
+    (the four kernels and their twins), so every field of every slot is
+    bit-equal: uv, response, angle, level, desc and valid. Four launches per
+    extraction: pyramid, K1, select and describe."""
     from orbslam2commentedbyxcm_tpu_torch.ops.orb import ORBExtractor
     from orbslam2commentedbyxcm_tpu_torch.utils.synth import BoxSequence, default_camera
 
     seq = BoxSequence(camera=default_camera(640, 480), seed=5, n_frames=100, turns=0.35)
     ext = ORBExtractor(n_features=1000, normalize_exposure=True)
+    counters = (pk.pyramid_resize, fk.fused_frontend_pyramid, sk.select_keypoints, dk.describe_keypoints)
     for i in (0, 20, 40):
         img = seq.render(i)
+        before = [c.launches for c in counters]
         card = ext(torch.from_numpy(img).to(cuda_device))
+        assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1, 1]
         cpu = ext(torch.from_numpy(img))
-        for f in ("valid", "uv", "level", "response"):
+        for f in card._fields:
             assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), (i, f)
         only, n, ang_err, bits = _compare_features(card, cpu)
-        print(f"frame {i}: {n} keypoints bit-equal, angle err {ang_err:.3g}, descriptors differ "
-              f"{int((bits > 0).sum())} (max {int(bits.max())} bits)")
-        assert not only and n > 500
-        assert ang_err <= 1e-5 and int((bits > 0).sum()) <= 5 and int(bits.max()) <= 4, (i, ang_err)
+        print(f"frame {i}: {n} keypoints, every field bit-equal")
+        assert not only and n > 500 and ang_err == 0.0 and int(bits.max()) == 0
 
 
 @pytest.mark.parametrize("features", ["handed", "own"])
@@ -332,7 +451,7 @@ def test_system_on_card_matches_cpu_twins(cuda_device, features):
         card.extractor = lambda img: extracted.append(card_extract(img)) or extracted[-1]
         cpu.extractor = lambda img: FrameFeatures(*(t.cpu() for t in extracted.pop(0)))
     k1, k2 = fk.fused_frontend_pyramid.launches, poseopt_kernel.pose_optimization_fused.launches
-    k0 = pk.pyramid_resize.launches
+    k0, s0, d0 = pk.pyramid_resize.launches, sk.select_keypoints.launches, dk.describe_keypoints.launches
     for i, (img, depth) in enumerate(frames):
         a = card.track_rgbd(img, depth, i / 30.0)
         b = cpu.track_rgbd(img, depth, i / 30.0)
@@ -341,6 +460,7 @@ def test_system_on_card_matches_cpu_twins(cuda_device, features):
         np.testing.assert_array_equal(card.tracking.last_frame.depth, cpu.tracking.last_frame.depth)
     assert fk.fused_frontend_pyramid.launches - k1 == len(frames)  # one launch per extraction
     assert pk.pyramid_resize.launches - k0 == len(frames)  # one launch per extraction, the gain included
+    assert sk.select_keypoints.launches - s0 == len(frames) and dk.describe_keypoints.launches - d0 == len(frames)
     assert poseopt_kernel.pose_optimization_fused.launches - k2 >= 2 * (len(frames) - 1)
     assert card.map.n_valid_points() == cpu.map.n_valid_points()
 

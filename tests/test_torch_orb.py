@@ -11,7 +11,8 @@ tests/test_torch_pyramid_resize.py), and on images with flat regions (many
 tied FAST scores) that moves a few keypoints there. The exposure gain's mean
 and MAD are trees of the port's own, so the gain differs from JAX's in its
 last bits. Descriptors are held bit-equal on >= 99% of common keypoints: the
-orientation moments are an f32 reduction in another order, which can flip the
+orientation moments are an f32 reduction in another order (and atan2 the
+port's own float32 one, ops/descriptors.atan2_f32), which can flip the
 rounding of a rotated sample position.
 """
 
@@ -25,9 +26,9 @@ from orbslam2commentedbyxcm_tpu.ops import orb as jorb
 from orbslam2commentedbyxcm_tpu.ops.descriptors import descriptors_from_windows as j_desc
 from orbslam2commentedbyxcm_tpu.utils.synth import BoxSequence as JBoxSequence
 from orbslam2commentedbyxcm_tpu.utils.synth import default_camera as j_default_camera
-from orbslam2commentedbyxcm_tpu_torch.ops.descriptors import descriptors_from_windows as t_desc
-from orbslam2commentedbyxcm_tpu_torch.ops.frontend_kernel import fused_frontend
-from orbslam2commentedbyxcm_tpu_torch.ops.orb import _resize_pass
+from orbslam2commentedbyxcm_tpu_torch.ops.descriptors import describe_plain
+from orbslam2commentedbyxcm_tpu_torch.ops.frontend_kernel import fused_frontend, level_table
+from orbslam2commentedbyxcm_tpu_torch.ops.orb import _resize_pass, select_level
 from orbslam2commentedbyxcm_tpu_torch.utils import convert
 
 torch.set_num_threads(1)
@@ -84,9 +85,15 @@ def _level_images(img, ext):
 
 
 def _port_level(pe, level_img, lvl):
-    """One level image through the port's frontend and per-level selection."""
-    maps = fused_frontend(torch.from_numpy(level_img), pe.ini_th, pe.min_th)
-    return pe._select_level(*maps, lvl)
+    """One level image through the port's frontend, per-level selection and
+    describe twins -> (uv, response, level, valid, desc, angle)."""
+    blurred, nms_hi, nms_lo = fused_frontend(torch.from_numpy(level_img), pe.ini_th, pe.min_th)
+    px, py, resp, valid = select_level(nms_hi, nms_lo, pe.budgets[lvl], pe.cell_size, pe.per_cell_k)
+    budget = pe.budgets[lvl]
+    uv, ang, _, desc = describe_plain(blurred.reshape(-1), level_table((tuple(blurred.shape),)),
+                                      torch.stack([px, py]).int(), [budget], [pe.scales[lvl]],
+                                      pe._descriptor_tables("cpu"))
+    return uv, resp, torch.full((budget,), lvl, dtype=torch.int32), valid, desc, ang
 
 
 def _compare_level(je, pe, level_img, lvl, hl, wl, desc_bar=0.99):
@@ -95,8 +102,7 @@ def _compare_level(je, pe, level_img, lvl, hl, wl, desc_bar=0.99):
         return (uv, resp, lev, valid) + j_desc(rows, off, je._pattern, je._kmx, je._kmy)
 
     uv_j, resp_j, lev_j, valid_j, desc_j, ang_j = jax.jit(jax_level)(jnp.asarray(level_img))
-    uv_p, resp_p, lev_p, patches, valid_p = _port_level(pe, level_img, lvl)
-    desc_p, ang_p = t_desc(patches, pe._pattern, pe._kmx, pe._kmy)
+    uv_p, resp_p, lev_p, valid_p, desc_p, ang_p = _port_level(pe, level_img, lvl)
     v = np.asarray(valid_j)
     np.testing.assert_array_equal(valid_p.numpy(), v)
     np.testing.assert_array_equal(uv_p.numpy(), np.asarray(uv_j))

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from orbslam2commentedbyxcm_tpu_torch.ops import frontend_kernel as fk
-from orbslam2commentedbyxcm_tpu_torch.ops.orb import ORBExtractor, _exposure_gain, _resize_pass
+from orbslam2commentedbyxcm_tpu_torch.ops.orb import ORBExtractor, _exposure_gain, _resize_pass, select_level
 
 torch.set_num_threads(1)
 
@@ -73,9 +73,9 @@ def test_pyramid_wrapper_on_cpu_equals_plain_per_level(rng, kind):
 def _per_level_extract(ext, img):
     """The extractor as it ran before its pyramid buffer: each level image a
     separate tensor (level 0 the image itself, level l its two resize passes
-    of ops/orb), run through the single-level frontend and the per-level
-    selection."""
-    from orbslam2commentedbyxcm_tpu_torch.ops.descriptors import descriptors_from_windows
+    of ops/orb), run through the single-level frontend, the per-level
+    selection and the descriptors of that level alone."""
+    from orbslam2commentedbyxcm_tpu_torch.ops.descriptors import describe_plain
     from orbslam2commentedbyxcm_tpu_torch.ops.orb import FrameFeatures
 
     h, w = img.shape
@@ -85,10 +85,14 @@ def _per_level_extract(ext, img):
     for lvl, s in enumerate(ext.scales):
         hl, wl = max(16, round(h / s)), max(16, round(w / s))
         level = img if lvl == 0 else _resize_pass(_resize_pass(img, hl), wl).contiguous()
-        outs.append(ext._select_level(*fk.fused_frontend(level, ext.ini_th, ext.min_th), lvl))
-    uv, resp, level, patches, valid = (torch.cat([o[i] for o in outs]) for i in range(5))
-    desc, ang = descriptors_from_windows(patches, ext._pattern, ext._kmx, ext._kmy)
-    return FrameFeatures(uv, resp, ang, level, desc, valid)
+        blurred, nms_hi, nms_lo = fk.fused_frontend(level, ext.ini_th, ext.min_th)
+        px, py, resp, valid = select_level(nms_hi, nms_lo, ext.budgets[lvl], ext.cell_size, ext.per_cell_k)
+        uv, ang, _, desc = describe_plain(blurred.reshape(-1), fk.level_table(((hl, wl),)),
+                                          torch.stack([px, py]).int(), [ext.budgets[lvl]], [s],
+                                          ext._descriptor_tables("cpu"))
+        lev = torch.full((ext.budgets[lvl],), lvl, dtype=torch.int32)
+        outs.append((uv, resp, ang, lev, desc, valid))
+    return FrameFeatures(*(torch.cat([o[i] for o in outs]) for i in range(6)))
 
 
 @pytest.mark.parametrize("normalize_exposure", [False, True])

@@ -3,7 +3,8 @@ runs of one build, and how two builds compare on the same card.
 
     python3 tools/loop_runs.py [--runs N] [--tree DIR] [--out FILE]
                                [--deterministic] [--gba-after K]
-                               [--async] [--eight]
+                               [--async] [--eight] [--eight-runs M]
+                               [--no-handoff]
 
 Runs chip_smoke.py's phase 12 System (RGB-D, vocabulary="bootstrap", loop
 closing on) over its 130-frame BoxSequence orbit at 640x480 N times (default
@@ -28,8 +29,17 @@ deferred, the local BAs stopped early and the deepest mapping queue. Each run
 is held to chip_smoke's gates for that phase (every frame tracked, a loop
 closed, no false closure by ground truth, ATE within 1.5 x JAX_ATE_LOOP +
 1 cm) and the line says which gate failed. `--eight` then runs phase 14's
-async figure-eight (utils/gauntlet.run_sequence) N times, one line each with
-its record and the mini-gauntlet's gates. Needs an NVIDIA GPU.
+async figure-eight (utils/gauntlet.run_sequence) M times (`--eight-runs`,
+default N; `--runs 0` runs the eight alone), one line each with its record
+and the mini-gauntlet's gates. Every async run also reports `lags`: for
+each keyframe the mapping stage queued, the frames whose tracking began
+between its queueing and the worker taking it up under the map lock, as
+(lag, keyframes) pairs: 0 is the order the synchronous System keeps (taken
+before the next frame is tracked), 1 or more that frames were tracked in
+between.
+`--no-handoff` stops the tracker waiting for the worker to take up a queued
+keyframe (AsyncMapping.wait_taken does nothing): the order before that
+hand-off, a race between the worker and the next frame. Needs an NVIDIA GPU.
 """
 
 import argparse
@@ -49,6 +59,42 @@ def _smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def watch_lags(handoff: bool) -> list:
+    """Record each queued keyframe's lag (the frames whose tracking began
+    between its queueing and the mapping worker taking it up) into the list
+    returned; with handoff=False, AsyncMapping.wait_taken no longer waits."""
+    from orbslam2commentedbyxcm_tpu_torch.models import async_pipeline, local_mapping, tracking
+
+    lags, queued, tracked = [], {}, [0]
+    queue, take = async_pipeline.AsyncMapping.insert_keyframe, local_mapping.LocalMapping.insert_keyframe
+    track = tracking.Tracking.track_frame
+
+    def track_frame(self, frame):  # called under the map lock
+        tracked[0] += 1
+        return track(self, frame)
+
+    def queue_kf(self, kf_id):
+        queued[kf_id] = tracked[0]
+        queue(self, kf_id)
+
+    def take_kf(self, kf_id):  # called by the worker under the map lock
+        if kf_id in queued:
+            lags.append(tracked[0] - queued.pop(kf_id))
+        take(self, kf_id)
+
+    tracking.Tracking.track_frame = track_frame
+    async_pipeline.AsyncMapping.insert_keyframe = queue_kf
+    local_mapping.LocalMapping.insert_keyframe = take_kf
+    if not handoff:
+        async_pipeline.AsyncMapping.wait_taken = lambda self: None
+    return lags
+
+
+def lag_counts(lags: list) -> list:
+    """(lag, keyframes) pairs of a run, by lag."""
+    return sorted((lag, lags.count(lag)) for lag in set(lags))
 
 
 def one_run(smoke, torch, dev, cam, seq, frames, gba_after=None, async_mapping=False) -> dict:
@@ -125,6 +171,8 @@ def main() -> int:
     ap.add_argument("--gba-after", type=int, default=None)
     ap.add_argument("--async", dest="async_mapping", action="store_true")
     ap.add_argument("--eight", action="store_true")
+    ap.add_argument("--eight-runs", type=int, default=None)
+    ap.add_argument("--no-handoff", action="store_true")
     args = ap.parse_args()
     if args.deterministic:
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")  # before CUDA starts
@@ -146,18 +194,23 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     cam = default_camera(640, 480)
     seq = BoxSequence(camera=cam, n_frames=smoke.N_LOOP, turns=1.3)
-    frames = [(seq.render(i), seq.depth_map(i)) for i in range(smoke.N_LOOP)]
+    frames = [(seq.render(i), seq.depth_map(i)) for i in range(smoke.N_LOOP if args.runs else 0)]
     label = os.path.relpath(tree, ROOT)
+    lags = watch_lags(handoff=not args.no_handoff)
     for r in range(args.runs):
+        lags.clear()
         res = one_run(smoke, torch, dev, cam, seq, frames, args.gba_after, args.async_mapping)
         res.update(tree=label, run=r, card=card, deterministic=args.deterministic, gba_after=args.gba_after)
+        if args.async_mapping:
+            res.update(handoff=not args.no_handoff, lags=lag_counts(lags))
         _report(f"loop_runs {label} #{r}", card, res, args.out)
     if args.eight:
         from orbslam2commentedbyxcm_tpu_torch.utils.gauntlet import render_frames, run_sequence
 
         cam8 = smoke._eight_camera()
         images = render_frames("eight", smoke.EIGHT_FRAMES, cam8)
-        for r in range(args.runs):
+        for r in range(args.runs if args.eight_runs is None else args.eight_runs):
+            lags.clear()
             rec = run_sequence("eight", smoke.EIGHT_FRAMES, augment=True, async_mapping=True, camera=cam8,
                                n_features=900, device=dev, images=images)
             gt = rec["gt_loops"]
@@ -165,7 +218,7 @@ def main() -> int:
                 ("tracked", rec["tracked"] >= rec["frames"] - 5), ("loop", rec["loops_closed"] >= 1),
                 ("false_closure", gt["false_closures"] == 0), ("missed", gt["missed"] == 0),
                 ("drift", rec["drift_pct"] < 0.8)) if not ok]
-            rec.update(tree=label, run=r, card=card)
+            rec.update(tree=label, run=r, card=card, handoff=not args.no_handoff, lags=lag_counts(lags))
             _report(f"loop_runs eight {label} #{r}", card, rec, args.out)
     return 0
 

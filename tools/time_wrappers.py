@@ -1,6 +1,7 @@
-"""Device and call times of the port's two CUDA kernels through its public
-wrappers, at the main path's shapes, on one CUDA GPU: for this checkout's
-port, or for the port of another checkout of the repository.
+"""Device and call times of the port's K1 and K2 CUDA kernels through their
+public wrappers, and of a whole extraction, at the main path's shapes, on
+one CUDA GPU: for this checkout's port, or for the port of another checkout
+of the repository.
 
     python3 tools/time_wrappers.py [TREE]    # from the repository root
 
@@ -14,7 +15,10 @@ current, earlier.
   one `fused_frontend_pyramid` launch where the port has it, else one
   `fused_frontend` call per level;
 - K2: one `pose_optimization_fused` solve at N = 32, 1000 and 2000 edges
-  (stereo 0.5).
+  (stereo 0.5);
+- the whole extraction: `ORBExtractor(1000, normalize_exposure=True)` on
+  the same frame, already on the card (the tracker's extractor), with the
+  number of CUDA kernels it launches.
 
 Device time is the kernels' own time under torch.profiler per extraction or
 solve; call time is the CUDA-event round trip of the wrappers.
@@ -94,6 +98,14 @@ def main():
 
         dev_ms, _ = cs._device_ms(k2, 50, "pose_opt_kernel")
         print(f"K2 one solve, N={n}, stereo 0.5: device {dev_ms:.4f} ms, call {cs._cuda_ms(k2, 200):.4f} ms")
+    tracker = ORBExtractor(n_features=1000, normalize_exposure=True)
+
+    def extract():
+        tracker(img)
+
+    dev_ms, n = cs._device_ms(extract, 20, "")
+    print(f"extraction, 640x480 frame, 1000 features, gain on: {n / 20:.1f} kernels per extraction, device "
+          f"{dev_ms:.4f} ms, call {cs._cuda_ms(extract, 50):.4f} ms")
 
 
 if __name__ == "__main__":
