@@ -1822,7 +1822,7 @@ def phase_datasets(torch, dev, card: str):
             _check(k1 == per_frame * total and k2 >= 2 * (tracked - 1),
                    f"{fmt}: K1 {k1}, K2 {k2} launches over {total} frames (K1 {per_frame} per frame, K2 >= 2 "
                    f"per tracked frame)")
-            records = [json.loads(line) for line in open(trace)][:-1]
+            records = [r for r in map(json.loads, open(trace)) if r.get("kind") == "frame"]
             frame_ms = [(1e3 * sum(r["spans"].get(k, 0.0) for k in ("extract", "stereo_match", "tracking")),
                          "local_mapping" in r["spans"]) for r in records[1:]]
             kf_ms = [ms for ms, kf in frame_ms if kf]

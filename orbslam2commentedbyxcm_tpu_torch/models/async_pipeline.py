@@ -28,6 +28,11 @@ tracking against map changes (include/Map.h:114). Here:
     correction (`finalize`) take it. Global BA still runs on its own
     transient thread (models/gba).
 
+With a tracer (utils/tracing), each queued keyframe carries the id of the
+frame whose tracking inserted it (`cause`), and a worker's spans over that
+keyframe form one worker record; the loop worker's are `loop_worker`, with
+`loop_prepare`, `loop_detect`, `loop_sim3` and `loop_correct` inside it.
+
 Every other attribute reads and writes through to the wrapped stage, so the
 System wires a wrapper as it would the stage (paused, relocalizer, map).
 
@@ -46,6 +51,8 @@ from __future__ import annotations
 import queue
 import threading
 
+from orbslam2commentedbyxcm_tpu_torch.utils.tracing import cause, span, worker
+
 QUEUE_CAP = 3  # reference src/Tracking.cc:1173
 
 
@@ -54,12 +61,13 @@ class _AsyncStage:
     A stage exception is kept for wait_idle / shutdown, and the worker goes
     on draining."""
 
-    _OWN = {"inner", "lock", "_queue", "_thread", "_errors", "max_depth", "name"}
+    _OWN = {"inner", "lock", "_queue", "_thread", "_errors", "max_depth", "name", "_tracer"}
 
-    def __init__(self, inner, map_lock: threading.Lock, name: str):
+    def __init__(self, inner, map_lock: threading.Lock, name: str, tracer=None):
         object.__setattr__(self, "inner", inner)
         object.__setattr__(self, "lock", map_lock)
         object.__setattr__(self, "name", name)
+        object.__setattr__(self, "_tracer", tracer)
         object.__setattr__(self, "_queue", queue.Queue())
         object.__setattr__(self, "_errors", [])
         object.__setattr__(self, "max_depth", 0)  # deepest the queue got
@@ -82,11 +90,13 @@ class _AsyncStage:
 
     def _run(self):
         while True:
-            kf_id = self._queue.get()
+            item = self._queue.get()
             try:
-                if kf_id is None:
+                if item is None:
                     return
-                self._process(kf_id)
+                kf_id, frame_id = item
+                with worker(self._tracer, kf_id, frame_id):
+                    self._process(kf_id)
             except Exception as exc:  # kept, traceback and all, for wait_idle / shutdown
                 self._errors.append(exc)
             finally:
@@ -99,7 +109,7 @@ class _AsyncStage:
     def insert_keyframe(self, kf_id: int):
         """Enqueue; never blocks (the caller holds map_lock: backpressure
         comes from the keyframe policy, not the queue)."""
-        self._queue.put(kf_id)
+        self._queue.put((kf_id, cause(self._tracer)))
         self.max_depth = max(self.max_depth, self._queue.qsize())
 
     def wait_idle(self):
@@ -128,10 +138,10 @@ class _AsyncStage:
 
 
 class AsyncMapping(_AsyncStage):
-    def __init__(self, inner, map_lock: threading.Lock):
+    def __init__(self, inner, map_lock: threading.Lock, tracer=None):
         object.__setattr__(self, "_handoff", threading.Condition())
         object.__setattr__(self, "_counts", [0, 0])  # keyframes queued, keyframes taken up by the worker
-        super().__init__(inner, map_lock, "local-mapping")
+        super().__init__(inner, map_lock, "local-mapping", tracer)
         # the wrapped stage defers fuse / BA / culling while newer keyframes
         # are queued (reference CheckNewKeyFrames, src/LocalMapping.cc:63-71)
         inner.pending_check = lambda: not self._queue.empty()
@@ -175,19 +185,25 @@ class AsyncLoopClosing(_AsyncStage):
     reference takes the map mutex only in CorrectLoop
     (src/LoopClosing.cc:497)."""
 
-    def __init__(self, inner, map_lock: threading.Lock):
-        super().__init__(inner, map_lock, "loop-closing")
+    def __init__(self, inner, map_lock: threading.Lock, tracer=None):
+        super().__init__(inner, map_lock, "loop-closing", tracer)
 
     def _process(self, kf_id: int):
-        kf = self.inner.prepare_keyframe(kf_id)  # no map lock: the BoW transform
-        if kf is None:
-            return
-        with self.lock:
-            candidates = [] if kf.bad else self.inner.detect_candidates(kf)
-            snapshot = self.inner.snapshot_for_closure(kf, candidates) if candidates else None
-        # the Sim3 phase, usually a rejection: outside the lock, on the
-        # snapshot (the mapping worker goes on changing the live map)
-        found = self.inner.try_close(kf, candidates, snapshot=snapshot) if candidates else None
-        with self.lock:
-            if not kf.bad:  # it may have been culled meanwhile
-                self.inner.finalize(kf, found)
+        tr = self._tracer
+        with span(tr, "loop_worker"):
+            with span(tr, "loop_prepare"):
+                kf = self.inner.prepare_keyframe(kf_id)  # no map lock: the BoW transform
+            if kf is None:
+                return
+            with span(tr, "loop_detect"), self.lock:
+                candidates = [] if kf.bad else self.inner.detect_candidates(kf)
+                snapshot = self.inner.snapshot_for_closure(kf, candidates) if candidates else None
+            # the Sim3 phase, usually a rejection: outside the lock, on the
+            # snapshot (the mapping worker goes on changing the live map)
+            found = None
+            if candidates:
+                with span(tr, "loop_sim3"):
+                    found = self.inner.try_close(kf, candidates, snapshot=snapshot)
+            with span(tr, "loop_correct"), self.lock:
+                if not kf.bad:  # it may have been culled meanwhile
+                    self.inner.finalize(kf, found)

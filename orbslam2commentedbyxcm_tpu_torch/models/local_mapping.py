@@ -30,7 +30,11 @@ async pipeline (models/async_pipeline, which runs this stage on a worker):
 `pending_check` (set by AsyncMapping: more keyframes queued) defers fuse,
 local BA and keyframe culling, the CheckNewKeyFrames() gates of the
 reference's Run loop. In the synchronous pipeline neither ever fires.
-`tracer` (utils/tracing) records the JAX package's spans.
+`tracer` (utils/tracing) records the JAX package's spans, and counts the
+local BAs deferred (`ba_deferred`) and stopped after their first phase
+(`ba_aborted`). `loop_closing` times the loop closer where it runs in this
+thread; a hand-off to the async loop worker is a queue put, and that
+worker's own spans time its work.
 
 Device work runs on the map's device; host bookkeeping stays numpy. The JAX
 package pads every array to a power-of-two size so XLA compiles each shape
@@ -44,13 +48,14 @@ import math
 import numpy as np
 import torch
 
+from orbslam2commentedbyxcm_tpu_torch.models.async_pipeline import AsyncLoopClosing
 from orbslam2commentedbyxcm_tpu_torch.models.frame import KeyFrame, level_sigma2
 from orbslam2commentedbyxcm_tpu_torch.models.map import Map
 from orbslam2commentedbyxcm_tpu_torch.models.tracking import project_and_match
 from orbslam2commentedbyxcm_tpu_torch.ops import matching, optim
 from orbslam2commentedbyxcm_tpu_torch.ops.twoview import triangulate
 from orbslam2commentedbyxcm_tpu_torch.utils.camera import Camera
-from orbslam2commentedbyxcm_tpu_torch.utils.tracing import span
+from orbslam2commentedbyxcm_tpu_torch.utils.tracing import count, span
 
 
 def _homogeneous(uv: torch.Tensor) -> torch.Tensor:
@@ -237,12 +242,15 @@ class LocalMapping:
             self.abort_ba = False
             if self._more_pending():
                 self.n_ba_deferred += 1
+                count(self.tracer, "ba_deferred")
             else:
                 with span(self.tracer, "local_ba"):
                     self.local_bundle_adjustment(kf)
                 with span(self.tracer, "map_host_cull"):
                     self.cull_keyframes(kf)
-        if self.loop_closer is not None:
+        if isinstance(self.loop_closer, AsyncLoopClosing):
+            self.loop_closer.insert_keyframe(kf_id)
+        elif self.loop_closer is not None:
             with span(self.tracer, "loop_closing"):
                 self.loop_closer.insert_keyframe(kf_id)
 
@@ -495,7 +503,9 @@ class LocalMapping:
             res = solve_ba_problem(problem, self.camera, m.device, abort_check=abort_check)
             out = (res.poses.cpu().numpy(), res.points.cpu().numpy(), res.obs_inliers.cpu().numpy())
         self.n_local_ba += 1
-        self.n_ba_aborted += int(any(phases))
+        if any(phases):
+            self.n_ba_aborted += 1
+            count(self.tracer, "ba_aborted")
         with span(self.tracer, "map_host_writeback"):
             write_back_ba(m, problem, res, out)
 

@@ -18,7 +18,10 @@ LoopClosing threads): the keyframe frame returns once the keyframe is
 queued, and `shutdown()` drains and joins the workers (call it, or
 `frame_trajectory()` / `save_map`, before reading the map). `tracer=` (a
 utils/tracing Tracer) records the extraction, tracking and mapping spans of
-every frame.
+every frame, and makes `map_lock` a utils/tracing.TracedLock: the tracking
+thread's wait for it is a `lock_wait` span (inside `tracking`) and the
+hand-off wait of the async pipeline a `handoff_wait` span; each hold counts
+per role. Without a tracer `map_lock` is a plain `threading.Lock`.
 
 With a vocabulary ("bootstrap" or an ops/bow Vocabulary) keyframes are
 registered in a BoW keyframe database, the reference-keyframe stage tries a
@@ -72,7 +75,7 @@ from orbslam2commentedbyxcm_tpu_torch.ops.stereo import stereo_match_frame
 from orbslam2commentedbyxcm_tpu_torch.parallel.mesh import same_device
 from orbslam2commentedbyxcm_tpu_torch.utils.camera import Camera
 from orbslam2commentedbyxcm_tpu_torch.utils.geometry import rot_to_quat
-from orbslam2commentedbyxcm_tpu_torch.utils.tracing import span
+from orbslam2commentedbyxcm_tpu_torch.utils.tracing import TracedLock, acquired, span
 
 
 class Sensor(enum.Enum):
@@ -169,11 +172,11 @@ class System:
         # Map::mMutexMapUpdate: held around tracking (which, synchronously,
         # runs mapping and loop closing too), by the async workers and by
         # global BA's write-back
-        self.map_lock = threading.Lock()
+        self.map_lock = threading.Lock() if tracer is None else TracedLock(tracer)
         self.local_mapping = LocalMapping(self.map, camera)
         self.local_mapping.tracer = tracer
         if async_mapping:
-            self.local_mapping = AsyncMapping(self.local_mapping, self.map_lock)
+            self.local_mapping = AsyncMapping(self.local_mapping, self.map_lock, tracer)
         self._loop_worker: AsyncLoopClosing | None = None
         self.tracking = Tracking(camera, self.map, self.local_mapping, self.cfg,
                                  std_capacity=self.extractor.capacity)
@@ -218,7 +221,7 @@ class System:
                                             map_lock=self.map_lock, device=self.device, mesh=self.mesh)
             if isinstance(self.local_mapping, AsyncMapping):
                 # reference: LoopClosing on its own thread (src/System.cc:105-111)
-                self._loop_worker = AsyncLoopClosing(self.loop_closing, self.map_lock)
+                self._loop_worker = AsyncLoopClosing(self.loop_closing, self.map_lock, self.tracer)
                 self.local_mapping.loop_closer = self._loop_worker
             else:
                 self.local_mapping.loop_closer = self.loop_closing
@@ -277,8 +280,9 @@ class System:
         # async mapping: the keyframe an earlier frame queued is taken up by
         # the mapping worker before this frame takes the map lock
         if isinstance(self.local_mapping, AsyncMapping):
-            self.local_mapping.wait_taken()
-        with span(self.tracer, "tracking"), self.map_lock:
+            with span(self.tracer, "handoff_wait"):
+                self.local_mapping.wait_taken()
+        with span(self.tracer, "tracking"), acquired(self.tracer, self.map_lock):
             state = self.tracking.track_frame(frame)
         if self.tracer is not None:
             self.tracer.end_frame(state=self.tracking.state.name, inliers=self.tracking.n_last_inliers)

@@ -43,7 +43,7 @@ from orbslam2commentedbyxcm_tpu_torch.models.map import Map
 from orbslam2commentedbyxcm_tpu_torch.ops import bow, matching, twoview
 from orbslam2commentedbyxcm_tpu_torch.ops.optim import pose_optimization
 from orbslam2commentedbyxcm_tpu_torch.utils.camera import Camera
-from orbslam2commentedbyxcm_tpu_torch.utils.tracing import span
+from orbslam2commentedbyxcm_tpu_torch.utils.tracing import count, span
 
 LOCAL_POINT_CAP = 4096
 
@@ -229,7 +229,7 @@ class Tracking:
         self.std_capacity = std_capacity
         self.vocabulary = None  # set by the System when place recognition is wired
         self.tracer = None  # set by the System; "track_device" spans end in a host read
-        self.n_kf_deferred = 0  # keyframes the queue-cap gate deferred
+        self.n_kf_deferred = 0  # keyframes the queue-cap gate deferred (the tracer's kf_refused_queue)
 
         self.state = TrackingState.NOT_INITIALIZED
         self.last_frame: Frame | None = None
@@ -490,7 +490,8 @@ class Tracking:
             self.velocity = frame.t_cw @ np.linalg.inv(self.last_frame.t_cw)
         self.frames_since_kf += 1
         if self._need_new_keyframe(frame):
-            self._create_new_keyframe(frame)
+            with span(self.tracer, "kf_create"):
+                self._create_new_keyframe(frame)
 
     def _gather_points(self, pids: np.ndarray, cap: int):
         """Packed point tensors for `pids` on the frame device + slot -> pid,
@@ -837,6 +838,7 @@ class Tracking:
             if interrupt is not None:
                 interrupt()
             self.n_kf_deferred += 1
+            count(self.tracer, "kf_refused_queue")
             return False
         return True
 
@@ -861,5 +863,6 @@ class Tracking:
         # the new keyframe re-centers the local map: the next frame runs the
         # staged path, which refreshes the fused step's local set
         self._prev_local_pids = None
+        count(self.tracer, "kf_inserted")
         if self.local_mapper is not None:
             self.local_mapper.insert_keyframe(kf.kf_id)
