@@ -75,7 +75,14 @@ from orbslam2commentedbyxcm_tpu_torch.ops.stereo import stereo_match_frame
 from orbslam2commentedbyxcm_tpu_torch.parallel.mesh import same_device
 from orbslam2commentedbyxcm_tpu_torch.utils.camera import Camera
 from orbslam2commentedbyxcm_tpu_torch.utils.geometry import rot_to_quat
-from orbslam2commentedbyxcm_tpu_torch.utils.tracing import TracedLock, acquired, span
+from orbslam2commentedbyxcm_tpu_torch.utils.tracing import TracedLock, acquired, count, span
+
+
+def _grey_on_device(img) -> bool:
+    """A uint8 or uint16 image of at most 256 channels: its channel sums are
+    integers below 2**24, which a float32 holds exactly."""
+    dtypes = (torch.uint8, torch.uint16) if isinstance(img, torch.Tensor) else (np.uint8, np.uint16)
+    return img.dtype in dtypes and (img.ndim == 2 or img.shape[-1] <= 256)
 
 
 class Sensor(enum.Enum):
@@ -146,6 +153,7 @@ class System:
         self.cfg = config or TrackingConfig()
         self.tracer = tracer
         self.index = index
+        self._channel_counts: dict[int, torch.Tensor] = {}
         self.map = self._new_map()
         # pre-reset trajectory segments, materialized as absolute poses
         self._archived_trajectory: list = []
@@ -254,14 +262,42 @@ class System:
 
     def _image(self, image) -> torch.Tensor:
         """(H, W) or (H, W, C) numpy array or tensor -> (H, W) float32 on the
-        System's device (grayscale as the mean of the channels, :301-312)."""
-        if isinstance(image, torch.Tensor):
-            img = image.to(self.device, torch.float32)
+        System's device (grayscale as the mean of the channels, :301-312).
+
+        A uint8 or uint16 image crosses to the device as it is and turns
+        grey there, to the bits of numpy's float64 mean cast to float32: its
+        channel sum is exact in float32, and the quotient of an integer
+        below 2**24 by C is never a float32 midpoint and lies at least
+        2**-25 / C of its size from one, far beyond float64's rounding
+        (2**-53), so rounding it once (float32 division) or twice (float64,
+        then float32) agrees. The divisor is a device tensor: torch
+        multiplies by the rounded reciprocal of a Python scalar on CUDA, as
+        `mean` does, which parts from numpy on some sums. Any other image
+        keeps the mean in its own precision, numpy's on the host. Counters
+        `grey_on_device` and `grey_on_host` name the path."""
+        img = image if isinstance(image, torch.Tensor) else np.asarray(image)
+        if _grey_on_device(img):
+            count(self.tracer, "grey_on_device")
+            if not isinstance(img, torch.Tensor):
+                img = torch.from_numpy(np.ascontiguousarray(img))
+            img = img.to(self.device)
+            if img.dim() == 2:
+                return img.to(torch.float32)
+            return img.sum(-1, dtype=torch.float32) / self._channel_count(img.shape[-1])
+        count(self.tracer, "grey_on_host")
+        if isinstance(img, torch.Tensor):
+            img = img.to(self.device, torch.float32)
             return img.mean(dim=-1) if img.dim() == 3 else img
-        img = np.asarray(image)
         if img.ndim == 3:
             img = img.mean(axis=-1)
         return torch.from_numpy(img.astype(np.float32)).to(self.device)
+
+    def _channel_count(self, c: int) -> torch.Tensor:
+        """The float32 divisor `c` on the System's device, made once."""
+        t = self._channel_counts.get(c)
+        if t is None:
+            t = self._channel_counts[c] = torch.tensor(float(c), device=self.device)
+        return t
 
     def _make_frame(self, img: torch.Tensor, timestamp: float) -> Frame:
         ext = self.extractor

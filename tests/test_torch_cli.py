@@ -55,7 +55,7 @@ def _tracked(stdout: str):
 def test_run_dataset_tum_on_cpu(tmp_path):
     """20 frames of tests/test_datasets_e2e.py's TUM sequence, with the
     tracer: tracked count, the ATE gate of that test, both TUM trajectory
-    files and the trace."""
+    files, the trace and the summary table's grey-path counter."""
     seq = BoxSequence(camera=_camera(), n_frames=90, seed=11, turns=0.35, tex_size=512)
     settings = dataset_writers.write_tum_rgbd(str(tmp_path), seq, 20)
     trace = str(tmp_path / "trace.jsonl")
@@ -69,6 +69,8 @@ def test_run_dataset_tum_on_cpu(tmp_path):
     kf = np.loadtxt(str(tmp_path / "KeyFrameTrajectory.txt"), ndmin=2)
     assert kf.shape[1] == 8 and len(kf) >= 1
     assert "trace written to" in out and sum(1 for _ in open(trace)) == total + 1
+    # the reader decodes grey float32 frames, which keep the host path
+    assert re.search(r"^grey_on_host +20$", out, re.M) and "grey_on_device" not in out, out[-1500:]
 
 
 def test_run_dataset_defaults_to_the_card(tmp_path):

@@ -465,6 +465,65 @@ def test_system_on_card_matches_cpu_twins(cuda_device, features):
     assert card.map.n_valid_points() == cpu.map.n_valid_points()
 
 
+def _every_uint8_sum():
+    """(1, 766, 3) uint8: pixel s has the channel sum s, for s = 0..765."""
+    s = np.arange(766)
+    return np.stack([np.minimum(s, 255), np.clip(s - 255, 0, 255), np.clip(s - 510, 0, 255)], -1)[None].astype(np.uint8)
+
+
+@pytest.mark.parametrize("kind", ["every_uint8_sum", "rgb_uint8_480x640", "rgb_uint16", "rgba_uint8"])
+def test_grey_on_card_is_numpy_mean_bit_for_bit(cuda_device, kind):
+    """System._image on the card: an integer frame uploaded as it is and
+    made grey there (the float32 channel sum over a device tensor holding
+    the count) gives numpy's float64 mean cast to float32, bit for bit;
+    torch's `mean` or a Python divisor would multiply by a rounded 1/3."""
+    from orbslam2commentedbyxcm_tpu_torch.models.system import Sensor, System
+    from orbslam2commentedbyxcm_tpu_torch.utils.synth import default_camera
+    from orbslam2commentedbyxcm_tpu_torch.utils.tracing import Tracer
+
+    rng = np.random.default_rng(7)
+    img = {
+        "every_uint8_sum": _every_uint8_sum,
+        "rgb_uint8_480x640": lambda: rng.integers(0, 256, (480, 640, 3)).astype(np.uint8),
+        "rgb_uint16": lambda: rng.integers(0, 65536, (480, 640, 3)).astype(np.uint16),
+        "rgba_uint8": lambda: rng.integers(0, 256, (480, 640, 4)).astype(np.uint8),
+    }[kind]()
+    tracer = Tracer()
+    s = System(default_camera(), Sensor.RGBD, enable_loop_closing=False, tracer=tracer, device=cuda_device)
+    out = s._image(img)
+    assert out.device.type == "cuda" and out.dtype == torch.float32
+    ref = img.mean(axis=-1).astype(np.float32)
+    np.testing.assert_array_equal(out.cpu().numpy().view(np.uint32), ref.view(np.uint32))
+    assert tracer.stats()["counters"] == {"grey_on_device": 1.0}
+
+
+def test_rgbd_frame_on_card_from_uint8_matches_its_float_grey(cuda_device):
+    """One track_rgbd frame on the card at 640x480, 1000 features, given a
+    colour uint8 frame, extracts every field of every slot as one given
+    numpy's float32 grey of the same frame (uploaded as float32)."""
+    from orbslam2commentedbyxcm_tpu_torch.models.system import Sensor, System
+    from orbslam2commentedbyxcm_tpu_torch.models.tracking import TrackingConfig
+    from orbslam2commentedbyxcm_tpu_torch.utils.synth import BoxSequence, default_camera
+    from orbslam2commentedbyxcm_tpu_torch.utils.tracing import Tracer
+
+    cam = default_camera(640, 480)
+    seq = BoxSequence(camera=cam, seed=5, n_frames=100, turns=0.35)
+    grey = seq.render(0)
+    noise = np.random.default_rng(9).integers(-20, 21, grey.shape + (3,))
+    rgb = np.clip(np.round(grey)[..., None] + noise, 0, 255).astype(np.uint8)
+    feats = []
+    for img, path in ((rgb, "grey_on_device"), (rgb.mean(axis=-1).astype(np.float32), "grey_on_host")):
+        tracer = Tracer()
+        s = System(cam, Sensor.RGBD, config=TrackingConfig(n_features=1000), enable_loop_closing=False,
+                   tracer=tracer, device=cuda_device)
+        assert s.track_rgbd(img, seq.depth_map(0), 0.0) is not None
+        assert tracer.stats()["counters"][path] == 1.0
+        feats.append(s.tracking.last_frame.feats)
+    for f in feats[0]._fields:
+        assert torch.equal(getattr(feats[0], f), getattr(feats[1], f)), f
+    assert int(feats[0].valid.sum()) > 500
+
+
 def test_segment_sum_repeats_on_card(cuda_device):
     """BA's and the pose graph's block sums on the card: the same inputs give
     the same bits on every call (index_add_ there adds with atomics in no

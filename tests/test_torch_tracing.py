@@ -11,8 +11,10 @@ port's span names, stats keys and dump rows are a superset of the JAX
 package's: it adds three spans of its own around the Map's index queries
 (`map_index_points`, `map_index_observers`, `map_index_connections`),
 one around the tracking thread's wait for the map lock (`lock_wait`) and
-one around the tracker's keyframe creation (`kf_create`), counters of the map lock's holds and of the keyframe gate, and a `kind` key
-on every dump row.
+one around the tracker's keyframe creation (`kf_create`), counters of the
+map lock's holds, of the keyframe gate and of the grey conversion's path
+(`grey_on_host` for these float32 frames), and a `kind` key on every dump
+row.
 
 The port alone: span records per thread with start and end stamps on the
 profiler's clock, parent ids and causes (a worker's spans go into a
@@ -46,7 +48,7 @@ CAM = JCamera(fx=250.0, fy=250.0, cx=160.0, cy=120.0, width=320, height=240, bf=
 CFG = dict(n_features=600, max_frames_between_kf=6)
 # what the port records beyond the JAX package (see the module docstring)
 PORT_SPANS = {"map_index_points", "map_index_observers", "map_index_connections", "lock_wait", "kf_create"}
-PORT_COUNTERS = {"kf_inserted", "lock_hold_s.tracking", "lock_holds.tracking"}
+PORT_COUNTERS = {"kf_inserted", "lock_hold_s.tracking", "lock_holds.tracking", "grey_on_host"}
 PORT_ROW_KEYS = {"kind"}
 
 
@@ -123,6 +125,7 @@ def test_system_span_names_match_jax():
     assert {"extract", "tracking", "track_device", "local_mapping", "local_ba", "map_device"} <= names_t
     for name in ("extract", "tracking"):
         assert tt.stats()["spans"][name]["n"] == 10
+    assert tt.stats()["counters"]["grey_on_host"] == 10  # the rendered frames are float32
     recs = tt.frame_records()
     assert len(recs) == 10 and all(r["state"] == "OK" and r["inliers"] > 0 for r in recs[1:])
     assert np.all(np.diff([r["frame"] for r in recs]) == 1)
